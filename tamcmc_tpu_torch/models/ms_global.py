@@ -1,0 +1,173 @@
+"""MS Global model family, a1etaa3 rotation (port of
+tamcmc_tpu/models/ms_global.py; reference `model_MS_Global_a1etaa3_HarveyLike`
+[U]).
+
+Block ABI (BlockLayout, the reference's plength order):
+  heights (N0,), visibilities (lmax,), freq_l0..freq_l3, rot [a1, eta0_switch,
+  a3, asym], widths (N0,), noise (3*nh+1,), inclination (1,) [rad], trunc (1,).
+
+`model_fn(params (..., D), nu (N,)) -> (..., N)` is batched over leading dims.
+With a `window_hint` the Lorentzian sum runs over static window segments
+anchored at params0 (the reference's c*Gamma truncation algorithm) through
+the segment-mode kernels on CUDA.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import numpy as np
+import torch
+
+from tamcmc_tpu_torch.models.common import (
+    assemble_components_a1etaa3, dnu_from_freqs)
+from tamcmc_tpu_torch.ops.lorentzian import (
+    make_static_window_groups, partition_window_groups, segment_values,
+    sum_lorentzians, sum_lorentzians_segments)
+from tamcmc_tpu_torch.ops.lorentzian_kernel import segment_plan
+from tamcmc_tpu_torch.ops.noise import noise_background
+from tamcmc_tpu_torch.utils.blocks import BlockLayout
+from tamcmc_tpu_torch.utils.constants import DNU_SUN, G_CGS, RHO_SUN
+
+
+@dataclasses.dataclass(frozen=True)
+class MSGlobalSpec:
+    """Static structure of an MS-Global problem (fixes all shapes).  Same
+    fields as the reference's spec; this port builds the a1etaa3 rotation
+    with free widths and refuses the others."""
+    n_per_l: tuple          # mode counts for l=0..3, e.g. (6, 6, 6, 0)
+    n_harvey: int = 3
+    rotation: str = "a1etaa3"
+    alm_filter: str = "gate"
+    noise_kind: str = "harvey_like"   # or "harvey_1985"
+    width_kind: str = "free"
+    window_hint: tuple = None   # (params0_tuple, nu_start, nu_step, n_bins,
+                                # margin_uHz) -> static window segments
+
+    @property
+    def lmax(self):
+        return max(l for l, n in enumerate(self.n_per_l) if n > 0 or l == 0)
+
+    def rot_size(self) -> int:
+        n0 = self.n_per_l[0]
+        return {"a1etaa3": 4, "a1a2a3": 4, "a1l": 5, "a1n": n0 + 3,
+                "a1nl": 2 * n0 + 3, "aj": 8, "ajAlm": 8}[self.rotation]
+
+    def width_size(self) -> int:
+        return self.n_per_l[0] if self.width_kind == "free" else 6
+
+    def layout(self) -> BlockLayout:
+        spec = [("heights", self.n_per_l[0]),
+                ("visibilities", max(self.lmax, 1) if self.lmax >= 1 else 0)]
+        for l in range(4):
+            spec.append((f"freq_l{l}",
+                         self.n_per_l[l] if l < len(self.n_per_l) else 0))
+        spec += [("rot", self.rot_size()),
+                 ("widths", self.width_size()),
+                 ("noise", 3 * self.n_harvey + 1),
+                 ("inclination", 1),
+                 ("trunc", 1)]
+        return BlockLayout.make(spec)
+
+
+def _eta0_ingraph(f0, switch):
+    """eta0 [s^2] from the in-graph Dnu scaling where switch > 0.5, else 0:
+    eta0 = 3 pi / (G rho_sun (Dnu/Dnu_sun)^2)."""
+    dnu = dnu_from_freqs(f0)
+    # a true division (python-scalar / tensor would be a reciprocal-multiply)
+    ratio = torch.full_like(dnu, DNU_SUN) / dnu
+    eta0 = 3.0 * math.pi / (G_CGS * RHO_SUN) * ratio ** 2
+    return torch.where(switch > 0.5, eta0, torch.zeros_like(eta0))
+
+
+def _window_segments(assemble, layout, window_hint):
+    """Static disjoint window segments anchored at params0 (host side).
+
+    The components are assembled from the float32 params0 on the CPU and the
+    window bounds formed in float32, the reference's arithmetic, so both
+    packages cut the grid into the same segments."""
+    if window_hint[0] and isinstance(window_hint[0][0], (tuple, list)):
+        raise NotImplementedError("multi-star window hints (stacked "
+                                  "ensembles) are not ported")
+    p0_t, nu_start, nu_step, n_bins, margin = window_hint
+    p0 = torch.as_tensor(np.asarray(p0_t, dtype=np.float32))
+    with torch.no_grad():
+        _, C0, W0, _, _ = assemble(p0)
+    trunc0 = float(layout.get(p0, "trunc")[0]) or 40.0
+    hw = trunc0 * np.maximum(W0.numpy(), 1e-3) + float(margin)
+    C0 = C0.numpy()
+    lo, hi = C0 - hw, C0 + hw
+    return partition_window_groups(make_static_window_groups(
+        0.5 * (lo + hi), 0.5 * (hi - lo), nu_start, nu_step, int(n_bins)))
+
+
+def build_ms_global(spec: MSGlobalSpec):
+    """Return (model_fn, layout): model_fn(params (..., D), nu) -> (..., N).
+
+    model_fn carries `_assemble` (params -> component arrays and noise
+    block) and, with spec.window_hint, `_window_groups` (the disjoint
+    segments), `_plan` (their kernel plan, built once here) and the
+    `_segments_and_bg` hook of the piece-wise likelihood."""
+    if spec.rotation != "a1etaa3" or spec.width_kind != "free":
+        raise NotImplementedError(
+            f"rotation={spec.rotation!r}, width_kind={spec.width_kind!r}: "
+            "only the a1etaa3 law with free widths is ported")
+    layout = spec.layout()
+
+    def assemble(params):
+        heights = layout.get(params, "heights")
+        widths = layout.get(params, "widths")
+        vis = layout.get(params, "visibilities")
+        freqs_per_l = [layout.get(params, f"freq_l{l}") for l in range(4)]
+        rot = layout.get(params, "rot")
+        noise = layout.get(params, "noise")
+        inc = layout.get(params, "inclination")[..., 0]
+        a1, sw, a3, asym = rot[..., 0], rot[..., 1], rot[..., 2], rot[..., 3]
+        eta0 = _eta0_ingraph(freqs_per_l[0], sw)
+        H, C, W, B = assemble_components_a1etaa3(
+            freqs_per_l, heights, widths, vis, inc, a1, eta0, a3, asym)
+        return H, C, W, B, noise
+
+    groups = plan = None
+    if spec.window_hint is not None:
+        groups = _window_segments(assemble, layout, spec.window_hint)
+        ncomp = sum(n * (2 * l + 1) for l, n in enumerate(spec.n_per_l))
+        plan = segment_plan(groups, ncomp, int(spec.window_hint[3]))
+
+    def model_fn(params, nu):
+        H, C, W, B, noise = assemble(params)
+        if groups is not None:
+            modes = sum_lorentzians_segments(nu, H, C, W, B, groups, plan)
+        else:
+            modes = sum_lorentzians(nu, H, C, W, B)
+        return modes + noise_background(nu, noise, n_harvey=spec.n_harvey,
+                                        kind=spec.noise_kind)
+
+    model_fn._assemble = assemble      # params -> (H, C, W, B, noise)
+    model_fn._window_groups = groups
+    model_fn._plan = plan
+    if groups is not None:
+        def segments_and_bg(params, nu, fixed=None):
+            """The partition's piece values plus a background evaluator on
+            bins [lo, hi), without the assembled spectrum; feeds
+            likelihood_chi22p_pieces.
+
+            fixed: optional (params0 (D,), fixed mask (D,)) from the
+            Problem.  The background terms whose parameters are all fixed
+            are then evaluated once per call, not once per walker, and get
+            no gradient (see ops/noise.py noise_background `const`)."""
+            H, C, W, B, noise = assemble(params)
+            # without pieces the background alone carries the walkers' shape
+            const = None if fixed is None or not groups else tuple(
+                layout.get(a, "noise") for a in fixed)
+
+            def bg_fn(lo, hi):
+                return noise_background(nu[lo:hi], noise,
+                                        n_harvey=spec.n_harvey,
+                                        kind=spec.noise_kind, const=const)
+
+            return segment_values(nu, H, C, W, B, groups, plan), bg_fn
+
+        model_fn._segments_and_bg = segments_and_bg
+    return model_fn, layout

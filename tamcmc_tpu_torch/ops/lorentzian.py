@@ -1,0 +1,335 @@
+"""Lorentzian mode-profile sums: the plain torch reference and the routed
+entry points of the main path.
+
+Port of tamcmc_tpu/ops/lorentzian.py.  Profile (Nigam & Kosovichev 1998
+asymmetry b), in the factored form the reference uses:
+    x = 2 (nu - nu0) / max(Gamma, 1e-6),   inv = 1 / (1 + x^2)
+    L(nu) = H b^2 + (H + 2 H b x) * inv
+
+Every function is batched over leading dims: params (..., NC), grid (N,) ->
+(..., N).  The plain versions (`*_plain`, `sum_lorentzians_trunc`) are
+`torch.autograd.Function`s whose backward is the reference's closed form
+(five shared reductions), never naive autograd, which would keep a
+(batch, NC, N) residual per op alive.
+
+All routing lives here.  `sum_lorentzians`, `sum_lorentzians_trunc_batched`,
+`segment_values` and `sum_lorentzians_segments` choose by tensor device
+only: CUDA tensors go through the hand-written kernels of
+ops/lorentzian_kernel.py, CPU tensors through the plain versions here.  A
+CUDA tensor never falls back: a failed build, a bad argument or a refused
+launch raises.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from tamcmc_tpu_torch.ops import lorentzian_kernel as _kernel
+
+_WFLOOR = 1e-6
+
+
+def _on_cuda(*tensors) -> bool:
+    return any(t.is_cuda for t in tensors)
+
+
+# ---------------------------------------------------------------------------
+# dense sum (plain)
+# ---------------------------------------------------------------------------
+
+def _fwd_impl(nu, H, C, W, B):
+    w = torch.clamp(W, min=_WFLOOR)
+    iw = 2.0 / w
+    hb2 = 2.0 * H * B
+    x = (nu - C[..., None]) * iw[..., None]               # (..., NC, N)
+    inv = 1.0 / (1.0 + x * x)
+    # frequency-independent continuum of the asymmetric terms: sum_k H b^2
+    return (torch.sum(H * B * B, dim=-1, keepdim=True)
+            + torch.sum((H[..., None] + hb2[..., None] * x) * inv, dim=-2))
+
+
+def _bwd_impl(nu, H, C, W, B, g):
+    """Closed-form cotangents of the factored form (reference `_bwd`):
+      dL/dH = b^2 + (1 + 2bx)·inv,   dL/db = 2Hb + 2H·x·inv
+      dL/dx = 2Hb·inv − (H + 2Hb·x)·2x·inv^2,   dx/dc = −2/w,  dx/dw = −x/w.
+    G = Σ g is shared by every component's constant parts."""
+    w = torch.clamp(W, min=_WFLOOR)
+    iw = 2.0 / w
+    hb2 = 2.0 * H * B
+    G = torch.sum(g, dim=-1, keepdim=True)
+    x = (nu - C[..., None]) * iw[..., None]
+    inv = 1.0 / (1.0 + x * x)
+    u = g[..., None, :] * inv
+    p = x * u
+    q = p * inv
+    r = x * q
+    s = x * r
+    Su, Sp, Sq, Sr, Ss = (torch.sum(t, dim=-1) for t in (u, p, q, r, s))
+    gh = B * B * G + Su + 2.0 * B * Sp
+    gb = hb2 * G + 2.0 * H * Sp
+    dx = hb2 * Su - 2.0 * H * Sq - 2.0 * hb2 * Sr
+    dxx = hb2 * Sp - 2.0 * H * Sr - 2.0 * hb2 * Ss
+    gc = -iw * dx
+    gw = torch.where(W > _WFLOOR, -dxx / w, torch.zeros_like(W))
+    return gh, gc, gw, gb
+
+
+class _SumLorentzians(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, nu, H, C, W, B):
+        ctx.save_for_backward(nu, H, C, W, B)
+        return _fwd_impl(nu, H, C, W, B)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (None,) + _bwd_impl(*ctx.saved_tensors, g)
+
+
+def sum_lorentzians_plain(nu, H, C, W, B):
+    """Dense Lorentzian sum, plain torch: (..., NC) -> (..., N).
+    Zero-height components contribute exactly 0 (static padding)."""
+    return _SumLorentzians.apply(nu, H, C, W, B)
+
+
+# ---------------------------------------------------------------------------
+# windowed (truncated) sum (plain) — the reference's truncation semantics
+# ---------------------------------------------------------------------------
+
+def _trunc_terms(nu, H, C, W, B, win):
+    w = torch.clamp(W, min=_WFLOOR)
+    iw = 2.0 / w
+    d = nu - C[..., None]
+    x = d * iw[..., None]
+    m = (torch.abs(d) <= win[..., None]).to(nu.dtype)
+    inv = 1.0 / (1.0 + x * x)
+    return w, iw, x, m, inv
+
+
+def _trunc_fwd_impl(nu, H, C, W, B, win):
+    _, _, x, m, inv = _trunc_terms(nu, H, C, W, B, win)
+    hb2 = 2.0 * H * B
+    hbb = H * B * B
+    contrib = hbb[..., None] + (H[..., None] + hb2[..., None] * x) * inv
+    return torch.sum(contrib * m, dim=-2)
+
+
+def _trunc_bwd_impl(nu, H, C, W, B, win, g):
+    """Same closed forms as _bwd_impl with every reduction masked by the
+    window; the window gets no gradient (hard edges, like the reference)."""
+    w, iw, x, m, inv = _trunc_terms(nu, H, C, W, B, win)
+    hb2 = 2.0 * H * B
+    gm = g[..., None, :] * m
+    u = gm * inv
+    p = x * u
+    q = p * inv
+    r = x * q
+    s = x * r
+    Gk, Su, Sp, Sq, Sr, Ss = (torch.sum(t, dim=-1)
+                              for t in (gm, u, p, q, r, s))
+    gh = B * B * Gk + Su + 2.0 * B * Sp
+    gb = hb2 * Gk + 2.0 * H * Sp
+    dx = hb2 * Su - 2.0 * H * Sq - 2.0 * hb2 * Sr
+    dxx = hb2 * Sp - 2.0 * H * Sr - 2.0 * hb2 * Ss
+    gc = -iw * dx
+    gw = torch.where(W > _WFLOOR, -dxx / w, torch.zeros_like(W))
+    return gh, gc, gw, gb
+
+
+class _SumLorentziansTrunc(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, nu, H, C, W, B, win):
+        ctx.save_for_backward(nu, H, C, W, B, win)
+        return _trunc_fwd_impl(nu, H, C, W, B, win)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (None,) + _trunc_bwd_impl(*ctx.saved_tensors, g) + (None,)
+
+
+def sum_lorentzians_trunc(nu, H, C, W, B, win):
+    """Windowed Lorentzian sum, plain torch: (..., NC) -> (..., N).
+
+    A component contributes 0 outside |nu - nu0| <= win; win = +inf is the
+    dense profile, a negative window contributes nothing."""
+    return _SumLorentziansTrunc.apply(nu, H, C, W, B, win)
+
+
+# ---------------------------------------------------------------------------
+# static window groups and their disjoint partition (host side, numpy)
+# ---------------------------------------------------------------------------
+
+_GROUP_MAX = 64   # components per group (the reference's unroll chunk)
+_NEW_GROUP_COST_BINS = 512   # (component x bin) cost charged per new group
+
+
+def make_static_window_groups(centers, halfwidths, nu_start, nu_step,
+                              n_bins):
+    """Host-side static component groups: a tuple of
+    (component_index_tuple, bin_lo, bin_hi) covering every component once.
+
+    centers/halfwidths are numpy (ncomp,) estimates from params0 (halfwidth =
+    truncation window plus a wander margin).  Grouping is cost-aware: in
+    sorted-centre order a component joins the current group only if that
+    costs fewer (component x bin) evaluations than opening a new one, with
+    `_NEW_GROUP_COST_BINS` charged per new group.  Identical to the
+    reference's ops/lorentzian.py make_static_window_groups at its defaults."""
+    centers = np.asarray(centers, dtype=np.float64)
+    halfwidths = np.asarray(halfwidths, dtype=np.float64)
+    order = np.argsort(centers)
+
+    def _bins(lo_f, hi_f):
+        lo = int(np.clip(np.floor((lo_f - nu_start) / nu_step), 0, n_bins))
+        hi = int(np.clip(np.ceil((hi_f - nu_start) / nu_step) + 1, 0, n_bins))
+        return lo, max(hi, lo)
+
+    groups = []
+    cur, cur_lo, cur_hi = [], 0.0, 0.0
+    for i in order:
+        c, hw = float(centers[i]), float(halfwidths[i])
+        lo_f, hi_f = c - hw, c + hw
+        if not cur:
+            cur, cur_lo, cur_hi = [int(i)], lo_f, hi_f
+            continue
+        u_lo, u_hi = min(cur_lo, lo_f), max(cur_hi, hi_f)
+        n = len(cur)
+        cost_extend = (n + 1) * (u_hi - u_lo) / nu_step
+        cost_split = (n * (cur_hi - cur_lo) + (hi_f - lo_f)) / nu_step \
+            + _NEW_GROUP_COST_BINS
+        if cost_extend <= cost_split and n < _GROUP_MAX:
+            cur.append(int(i))
+            cur_lo, cur_hi = u_lo, u_hi
+        else:
+            groups.append((tuple(cur),) + _bins(cur_lo, cur_hi))
+            cur, cur_lo, cur_hi = [int(i)], lo_f, hi_f
+    if cur:
+        groups.append((tuple(cur),) + _bins(cur_lo, cur_hi))
+    return tuple(groups)
+
+
+def partition_window_groups(groups):
+    """Resolve (possibly overlapping) window groups into DISJOINT sorted
+    segments with the same per-bin semantics and comp-bin cost.
+
+    The union of group ranges is cut at every group boundary; each interval
+    carries the union of the components of every group covering it, and
+    adjacent intervals with identical component sets are re-merged.  Each
+    component is evaluated on its own group's range, no more, no less.
+    Empty groups (off-grid components) are dropped."""
+    live = [(tuple(idx), lo, hi) for idx, lo, hi in groups if hi > lo]
+    if not live:
+        return ()
+    cuts = sorted({b for _, lo, hi in live for b in (lo, hi)})
+    segs = []
+    for lo, hi in zip(cuts[:-1], cuts[1:]):
+        comps = tuple(sorted({i for idx, glo, ghi in live
+                              if glo < hi and ghi > lo for i in idx}))
+        if not comps:
+            continue
+        if segs and segs[-1][0] == comps and segs[-1][2] == lo:
+            segs[-1] = (comps, segs[-1][1], hi)
+        else:
+            segs.append((comps, lo, hi))
+    return tuple(segs)
+
+
+# ---------------------------------------------------------------------------
+# routed entry points (CUDA -> kernels, CPU -> plain)
+# ---------------------------------------------------------------------------
+
+def _kernel_sum(nu, H, C, W, B, win, plan):
+    """Flatten leading dims to the kernel's (Bt, NC) and back."""
+    lead, nc = H.shape[:-1], H.shape[-1]
+
+    def flat(a):
+        return a.expand(lead + (nc,)).reshape(-1, nc).contiguous()
+
+    out = _kernel.windowed_lorentzian_sum(
+        nu.contiguous(), flat(H), flat(C), flat(W), flat(B), flat(win), plan)
+    return out.reshape(lead + (nu.shape[0],))
+
+
+def sum_lorentzians(nu, H, C, W, B):
+    """Dense Lorentzian sum: nu (N,), params (..., NC) -> (..., N)."""
+    if _on_cuda(nu, H):
+        win = torch.full_like(H, float("inf"))
+        return _kernel_sum(nu, H, C, W, B, win,
+                           _kernel.dense_plan(nu.shape[0], H.shape[-1]))
+    return sum_lorentzians_plain(nu, H, C, W, B)
+
+
+def sum_lorentzians_trunc_batched(nu, H, C, W, B, win):
+    """Batched windowed Lorentzian sum: params (Bt, NC), nu (N,) -> (Bt, N).
+
+    The public name of the reference's Pallas entry
+    (ops/pallas_lorentzian.py).  CUDA tensors launch the kernels over every
+    bin with the per-bin window mask; CPU tensors take the plain
+    `sum_lorentzians_trunc` with identical semantics."""
+    if _on_cuda(nu, H):
+        return _kernel_sum(nu, H, C, W, B, win,
+                           _kernel.dense_plan(nu.shape[0], H.shape[-1]))
+    return sum_lorentzians_trunc(nu, H, C, W, B, win)
+
+
+def _segment_pieces_from_full(full, segments):
+    """Split a full (..., N) segment sum into the segments' pieces with ONE
+    split, whose backward is a single concatenation (per-piece slicing
+    would allocate a full-size zero gradient per piece)."""
+    n = full.shape[-1]
+    bounds = sorted({0, n} | {b for _, lo, hi in segments for b in (lo, hi)})
+    chunks = torch.split(full, [b - a for a, b in zip(bounds[:-1], bounds[1:])],
+                         dim=-1)
+    at = {lo: c for lo, c in zip(bounds[:-1], chunks)}
+    return [(lo, hi, at[lo]) for _, lo, hi in segments if hi > lo]
+
+
+def _kernel_segments_full(nu, H, C, W, B, segments, plan):
+    if plan is None:
+        plan = _kernel.segment_plan(segments, H.shape[-1], nu.shape[0])
+    win = torch.full_like(H, float("inf"))
+    return _kernel_sum(nu, H, C, W, B, win, plan)
+
+
+def segment_values_plain(nu, H, C, W, B, segments):
+    out = []
+    for idx, lo, hi in segments:
+        if hi <= lo:
+            continue
+        ii = torch.as_tensor(idx, device=H.device)
+        out.append((lo, hi, sum_lorentzians_plain(
+            nu[lo:hi], H[..., ii], C[..., ii], W[..., ii], B[..., ii])))
+    return out
+
+
+def segment_values(nu, H, C, W, B, segments, plan=None):
+    """Each disjoint segment's mode sum: [(lo, hi, values (..., hi - lo))].
+
+    `segments` is partition_window_groups output; `plan` its
+    lorentzian_kernel.segment_plan (built from `segments` if None).  The
+    pieces feed likelihood_chi22p_pieces."""
+    if _on_cuda(nu, H):
+        full = _kernel_segments_full(nu, H, C, W, B, segments, plan)
+        return _segment_pieces_from_full(full, segments)
+    return segment_values_plain(nu, H, C, W, B, segments)
+
+
+def sum_lorentzians_segments_plain(nu, H, C, W, B, segments):
+    N = nu.shape[0]
+    lead = H.shape[:-1]
+    pieces, pos = [], 0
+    for lo, hi, seg in segment_values_plain(nu, H, C, W, B, segments):
+        if lo > pos:
+            pieces.append(nu.new_zeros(lead + (lo - pos,)))
+        pieces.append(seg)
+        pos = hi
+    if pos < N:
+        pieces.append(nu.new_zeros(lead + (N - pos,)))
+    return torch.cat(pieces, dim=-1)
+
+
+def sum_lorentzians_segments(nu, H, C, W, B, segments, plan=None):
+    """Windowed accumulation over DISJOINT sorted segments -> (..., N),
+    zero outside every segment."""
+    if _on_cuda(nu, H):
+        return _kernel_segments_full(nu, H, C, W, B, segments, plan)
+    return sum_lorentzians_segments_plain(nu, H, C, W, B, segments)

@@ -1,0 +1,55 @@
+"""Granulation / activity noise-background models (port of
+tamcmc_tpu/ops/noise.py; reference `noise_models.cpp` [U]).
+
+  harvey_like : N(nu) = A / (1 + (B * nu)^p)          per component
+  harvey_1985 : N(nu) = A tc / (1 + (2 pi nu tc 1e-3)^p)
+Negative/zero (A, B) components are "absent" (contribute 0), the reference's
+-1 placeholder convention.  Parameters broadcast against the grid: pass
+(..., 1) parameters and an (n,) grid for a (..., n) result.
+"""
+
+import math
+
+import torch
+
+
+def harvey_like(nu, A, B, p):
+    """One Harvey-like component A/(1 + (B*nu)^p); A [ppm^2/uHz], B [1/uHz]."""
+    active = (A > 0) & (B > 0)
+    safe_B = torch.where(active, B, torch.ones_like(B))
+    val = A / (1.0 + (safe_B * nu) ** p)
+    return torch.where(active, val, torch.zeros_like(val))
+
+
+def harvey_1985(nu, A, tc, p):
+    """Classic Harvey (1985) profile A*tc/(1 + (2*pi*nu*tc*1e-3)^p)."""
+    active = (A > 0) & (tc > 0)
+    safe_tc = torch.where(active, tc, torch.ones_like(tc))
+    val = A * safe_tc / (1.0 + (2.0 * math.pi * nu * safe_tc * 1e-3) ** p)
+    return torch.where(active, val, torch.zeros_like(val))
+
+
+def noise_background(nu, noise_params, n_harvey: int = 3,
+                     kind: str = "harvey_like", const=None):
+    """n_harvey components + white noise on grid nu (n,).
+
+    noise_params: (..., 3*n_harvey + 1) = [A1,B1,p1, ..., N0] -> (..., n).
+
+    const: optional (noise0 (3*n_harvey + 1,), fixed (3*n_harvey + 1,) bool).
+    A Harvey component whose A, B and p are all fixed, and a fixed white
+    level, are read from noise0 instead: they depend on no walker, so they
+    are evaluated once, unbatched and outside autograd.  The values, and the
+    order of the sum, are those of the batched evaluation."""
+    fn = harvey_like if kind == "harvey_like" else harvey_1985
+
+    def block(lo, hi):
+        if const is not None and bool(const[1][lo:hi].all()):
+            return const[0][lo:hi].detach()
+        return noise_params[..., lo:hi]
+
+    total = torch.zeros_like(nu)
+    for k in range(n_harvey):
+        A, B, p = (v[..., None] for v in block(3 * k, 3 * k + 3).unbind(-1))
+        total = total + fn(nu, A, B, p)
+    white = block(3 * n_harvey, 3 * n_harvey + 1)
+    return total + torch.clamp(white, min=0.0)
