@@ -1,11 +1,13 @@
 """tamcmc_tpu_torch CLI: the `run` verb (B/L/A phases) on a built-in demo.
 
-    python -m tamcmc_tpu_torch.cli run --demo ms_global --outdir OUT \
+    python -m tamcmc_tpu_torch.cli run --demo DEMO --outdir OUT \
         [--device cuda] [--temps 6 --chains 128] [--burnin/--learning/
         --acquire N] [--thin K] [--chunk E] [--seed S] [--ngrid N]
         [--n-orders K]
 
-Writes betas.npy and, per phase, {phase}_samples.bin/.hdr and
+DEMO is one of single_lorentzian, harvey_background, ms_global, kepler_full,
+subgiant_mixed and subgiant_mixed_inertia (BASELINE configs 1-5, see
+demos.py).  Writes betas.npy and, per phase, {phase}_samples.bin/.hdr and
 {phase}_chains.npz (readable by tamcmc_tpu's `read_bin_samples`/export).
 """
 
@@ -20,9 +22,10 @@ import time
 import numpy as np
 import torch
 
+from tamcmc_tpu_torch.demos import DEMOS, make_demo
+
 
 def cmd_run(args):
-    from tamcmc_tpu_torch.demos import make_demo
     from tamcmc_tpu_torch.io.outputs import OutputWriter
     from tamcmc_tpu_torch.sampler.driver import run_phase
     from tamcmc_tpu_torch.sampler.mala import init_state
@@ -85,7 +88,8 @@ def main(argv=None):
         description="PyTorch/CUDA port of the tamcmc peak-bagging engine")
     sub = ap.add_subparsers(dest="cmd", required=True)
     pr = sub.add_parser("run", help="execute a fit (B/L/A phases)")
-    pr.add_argument("--demo", required=True, help="built-in demo (ms_global)")
+    pr.add_argument("--demo", required=True, choices=sorted(DEMOS),
+                    help="built-in demo (BASELINE configs 1-5)")
     pr.add_argument("--outdir", required=True)
     pr.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu runs the plain "

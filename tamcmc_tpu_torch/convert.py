@@ -12,24 +12,56 @@ import dataclasses
 import numpy as np
 import torch
 
-from tamcmc_tpu_torch.demos import MODEL_NAME
-from tamcmc_tpu_torch.models.ms_global import MSGlobalSpec, build_ms_global
+from tamcmc_tpu_torch.models import asymptotic, ms_global, test_models
 from tamcmc_tpu_torch.sampler.problem import Problem
 from tamcmc_tpu_torch.sampler.state import SamplerState
 from tamcmc_tpu_torch.stats.assemblers import build_family_constraints
 from tamcmc_tpu_torch.stats.priors import PriorTable
 
+# the ported families by the reference's model name: (spec class, builder)
+FAMILIES = {
+    "model_ms_global_a1etaa3_harveylike":
+        (ms_global.MSGlobalSpec, ms_global.build_ms_global),
+    "model_rgb_asympt_a1etaa3_harveylike":
+        (asymptotic.RGBAsymptSpec, asymptotic.build_rgb_asympt),
+    "model_test_gaussian":
+        (test_models.TestGaussianSpec, test_models.build_test_gaussian),
+    "model_harvey_gaussian":
+        (test_models.HarveyGaussianSpec, test_models.build_harvey_gaussian),
+    "model_single_lorentzian":
+        (test_models.SingleLorentzianSpec,
+         test_models.build_single_lorentzian),
+    "model_harvey_background":
+        (test_models.HarveyBackgroundSpec,
+         test_models.build_harvey_background),
+    "model_kallinger2014_gaussian":
+        (test_models.Kallinger2014Spec, test_models.build_kallinger2014),
+}
 
-def problem_from_arrays(nu, spec, params0, kinds, hypers, names, spec_fields,
-                        device="cpu") -> Problem:
-    """The port's MS_Global problem from the reference problem's arrays.
 
-    spec_fields: the reference MSGlobalSpec's fields as a dict
-    (dataclasses.asdict), window_hint included."""
-    fields = dict(spec_fields)
-    fields["n_per_l"] = tuple(fields["n_per_l"])
-    spec_obj = MSGlobalSpec(**fields)
-    fn, layout = build_ms_global(spec_obj)
+def build_model(model_name: str, spec_fields=None):
+    """(spec, model_fn, layout) of a ported family from the reference's
+    model name and its spec's fields (dataclasses.asdict of the reference
+    spec, window_hint included; None for the family's default spec)."""
+    key = model_name.strip().lower()
+    if key not in FAMILIES:
+        raise NotImplementedError(f"model {model_name!r} is not ported; "
+                                  f"have {sorted(FAMILIES)}")
+    spec_cls, builder = FAMILIES[key]
+    fields = dict(spec_fields or {})
+    if "n_per_l" in fields:
+        fields["n_per_l"] = tuple(fields["n_per_l"])
+    spec = spec_cls(**fields)
+    fn, layout = builder(spec)
+    return spec, fn, layout
+
+
+def problem_from_arrays(model_name, nu, spec, params0, kinds, hypers, names,
+                        spec_fields=None, likelihood="chi22p",
+                        sigma_spec=None, device="cpu") -> Problem:
+    """The port's problem from the reference problem's arrays, its model
+    name and its spec's fields (see build_model)."""
+    spec_obj, fn, layout = build_model(model_name, spec_fields)
 
     def f32(a):
         return torch.tensor(np.asarray(a, dtype=np.float32), device=device)
@@ -39,8 +71,25 @@ def problem_from_arrays(nu, spec, params0, kinds, hypers, names, spec_fields,
                                      np.asarray(hypers, dtype=np.float64),
                                      tuple(names)),
                    nu=f32(nu), spec=f32(spec), params0=f32(params0),
-                   extra_logp=build_family_constraints(MODEL_NAME, layout),
-                   model_meta={"name": MODEL_NAME, "spec": spec_obj})
+                   likelihood=likelihood,
+                   sigma_spec=None if sigma_spec is None else f32(sigma_spec),
+                   extra_logp=build_family_constraints(model_name, layout),
+                   model_meta={"name": model_name, "spec": spec_obj})
+
+
+def problem_from_reference(ref, device="cpu") -> Problem:
+    """problem_from_arrays of a reference Problem, read through its
+    attributes (arrays converted with np.asarray)."""
+    spec = ref.model_meta["spec"]
+    sigma = ref.sigma_spec
+    return problem_from_arrays(
+        ref.model_meta["name"], np.asarray(ref.nu), np.asarray(ref.spec),
+        np.asarray(ref.params0), ref.priors.kinds, ref.priors.hypers,
+        ref.priors.names,
+        None if spec is None else dataclasses.asdict(spec),
+        likelihood=ref.likelihood,
+        sigma_spec=None if sigma is None else np.asarray(sigma),
+        device=device)
 
 
 def state_from_arrays(arrays: dict, device="cpu") -> SamplerState:

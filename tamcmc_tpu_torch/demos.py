@@ -1,22 +1,36 @@
-"""Built-in demo problem `ms_global` (BASELINE config 3), port of
-tamcmc_tpu/demos.py make_demo.
+"""Built-in demo problems, the BASELINE config ladder (port of
+tamcmc_tpu/demos.py make_demo):
 
-The data are generated from the model itself with chi^2(2 d.o.f.)
-multiplicative noise, so posterior recovery of the injected truth validates
-the pipeline.  `truth` and `params0` are built with the same numpy draws as
-the reference and come out bitwise equal to its demo, so both packages cut
-the grid into the same window segments; only the noise draw comes from a
-torch.Generator instead of a JAX key.
+  single_lorentzian       config 1: one Lorentzian + white noise
+  harvey_background       config 2: smoothed spectrum, chi_square likelihood
+  ms_global               config 3: l = 0, 1, 2 with a1 + inclination
+  kepler_full             config 4: 14 orders of l = 0..3, 10 temperatures
+  subgiant_mixed          config 5: dense l = 1 mixed modes (ARMM solver)
+  subgiant_mixed_inertia  config 5 with the mode-inertia height switch
+
+The data are generated from the model itself (chi^2 2-d.o.f. multiplicative
+noise for raw periodograms, Gaussian noise for the smoothed spectrum), so
+posterior recovery of the injected truth validates the pipeline.  `truth`
+and `params0` are built with the reference's numpy draws and come out
+bitwise equal to its demos, so both packages cut the grid into the same
+window segments; only the noise draw comes from a torch.Generator instead of
+a JAX key.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
 
+from tamcmc_tpu_torch.models.asymptotic import RGBAsymptSpec, build_rgb_asympt
 from tamcmc_tpu_torch.models.ms_global import MSGlobalSpec, build_ms_global
+from tamcmc_tpu_torch.models.test_models import (
+    HarveyBackgroundSpec, SingleLorentzianSpec, build_harvey_background,
+    build_single_lorentzian)
+from tamcmc_tpu_torch.ops.armm import count_poles
 from tamcmc_tpu_torch.sampler.driver import PhasePlan
 from tamcmc_tpu_torch.sampler.mala import default_init_scales
 from tamcmc_tpu_torch.sampler.problem import Problem
@@ -24,7 +38,92 @@ from tamcmc_tpu_torch.sampler.state import MALAHyper
 from tamcmc_tpu_torch.stats.assemblers import build_family_constraints
 from tamcmc_tpu_torch.stats.priors import PriorTable
 
-MODEL_NAME = "model_MS_Global_a1etaa3_HarveyLike"
+MS_GLOBAL = "model_MS_Global_a1etaa3_HarveyLike"
+RGB_ASYMPT = "model_RGB_asympt_a1etaa3_HarveyLike"
+SINGLE_LORENTZIAN = "model_Single_Lorentzian"
+HARVEY_BACKGROUND = "model_Harvey_Background"
+
+
+def _f32(a, device):
+    return torch.as_tensor(np.asarray(a, dtype=np.float32), device=device)
+
+
+def _grid(lo, hi, n, device):
+    return _f32(np.linspace(lo, hi, n), device)
+
+
+def _model(fn, truth, nu):
+    with torch.no_grad():
+        return fn(_f32(truth, nu.device), nu)
+
+
+def _chi2_noise(model, gen):
+    """Raw periodogram: the model times chi^2(2 d.o.f.)/2 noise."""
+    return model * torch.empty_like(model).exponential_(generator=gen)
+
+
+def _problem(name, fn, layout, priors, nu, spec, p0, spec_obj, **kw):
+    if priors.ndim != layout.ndim:
+        raise AssertionError((priors.ndim, layout.ndim))
+    return Problem(model_fn=fn, layout=layout, priors=priors, nu=nu,
+                   spec=spec, params0=_f32(p0, nu.device),
+                   extra_logp=build_family_constraints(name, layout),
+                   model_meta={"name": name, "spec": spec_obj}, **kw)
+
+
+def _meta(truth, n_temps, n_chains, name, spec_kwargs):
+    return {"truth": truth, "n_temps": n_temps, "n_chains": n_chains,
+            "model": name, "spec_kwargs": spec_kwargs}
+
+
+def _single_lorentzian(seed, ngrid, n_orders, device, gen):
+    spec_obj = SingleLorentzianSpec()
+    fn, layout = build_single_lorentzian(spec_obj)
+    nu = _grid(10.0, 90.0, 8192, device)
+    truth = np.asarray([12.0, 50.0, 2.0, 1.0], np.float32)
+    spec = _chi2_noise(_model(fn, truth, nu), gen)
+    priors = PriorTable.from_rows([
+        ("H", "jeffreys", 0.5, 100.0),
+        ("nu0", "uniform", 30.0, 70.0),
+        ("width", "jeffreys", 0.2, 20.0),
+        ("white", "jeffreys", 0.05, 10.0),
+    ])
+    p0 = np.asarray([8.0, 48.0, 3.0, 1.5])
+    problem = _problem(SINGLE_LORENTZIAN, fn, layout, priors, nu, spec, p0,
+                       None)
+    return (problem, MALAHyper(use_drift=True, dN_mixing=10, lambda_temp=1.6),
+            PhasePlan(burnin=1000, learning=4000, acquire=8000, thin=4),
+            _meta(truth, 4, 8, SINGLE_LORENTZIAN, {}))
+
+
+def _harvey_background(seed, ngrid, n_orders, device, gen):
+    spec_obj = HarveyBackgroundSpec()
+    fn, layout = build_harvey_background(spec_obj)
+    nu = _grid(1.0, 4000.0, 16384, device)
+    truth = np.asarray([300.0, 0.02, 4.0, 50.0, 0.004, 4.0,
+                        10.0, 0.0008, 2.0, 0.3], np.float32)
+    model = _model(fn, truth, nu)
+    nsmooth = 50
+    sigma = model / math.sqrt(nsmooth)
+    spec = model + sigma * torch.randn(model.shape, generator=gen,
+                                       device=device)
+    priors = PriorTable.from_rows([
+        ("A1", "jeffreys", 10.0, 3000.0), ("B1", "jeffreys", 1e-3, 1.0),
+        ("p1", "uniform", 1.0, 6.0),
+        ("A2", "jeffreys", 1.0, 500.0), ("B2", "jeffreys", 1e-4, 0.1),
+        ("p2", "uniform", 1.0, 6.0),
+        ("A3", "jeffreys", 0.5, 100.0), ("B3", "jeffreys", 1e-5, 0.01),
+        ("p3", "uniform", 1.0, 6.0),
+        ("N0", "jeffreys", 0.01, 10.0),
+    ])
+    p0 = truth * (1 + 0.3 * np.random.default_rng(seed).standard_normal(10))
+    p0 = np.clip(p0, [10, 1e-3, 1.0, 1, 1e-4, 1.0, 0.5, 1e-5, 1.0, 0.01],
+                 [3000, 1.0, 6.0, 500, 0.1, 6.0, 100, 0.01, 6.0, 10.0])
+    problem = _problem(HARVEY_BACKGROUND, fn, layout, priors, nu, spec, p0,
+                       None, likelihood="chi_square", sigma_spec=sigma)
+    return (problem, MALAHyper(use_drift=True, dN_mixing=10, lambda_temp=1.6),
+            PhasePlan(burnin=2000, learning=6000, acquire=8000, thin=4),
+            _meta(truth, 4, 8, HARVEY_BACKGROUND, {}))
 
 
 def _ms_global_truth(layout, n_orders, lmax, dnu, numax, rng):
@@ -74,26 +173,27 @@ def _ms_global_priors(layout, truth, n_orders, lmax, vis_true):
              ("N0", "jeffreys", 0.02, 5.0),
              ("inc", "uniform", 0.0, np.pi / 2),
              ("trunc", "fix")]
-    priors = PriorTable.from_rows(rows)
-    if priors.ndim != layout.ndim:
-        raise AssertionError((priors.ndim, layout.ndim))
-    return priors
+    return PriorTable.from_rows(rows)
 
 
-def make_demo(name: str, seed: int = 0, ngrid: int = None,
-              n_orders: int = None, device="cpu"):
-    """Returns (problem, hp, plan, meta) on `device`; meta holds the truth.
+# (n_orders, dnu, numax, n_temps, ngrid, lmax, plan, lambda_temp)
+_MS_GLOBAL_CONFIGS = {
+    "ms_global": (6, 100.0, 2500.0, 6, 40_000, 2,
+                  PhasePlan(burnin=3000, learning=12000, acquire=15000,
+                            thin=5), 1.5),
+    "kepler_full": (14, 85.0, 2200.0, 10, 120_000, 3,
+                    PhasePlan(burnin=4000, learning=20000, acquire=25000,
+                              thin=5), 1.35),
+}
 
-    ngrid/n_orders scale the demo down (tests); the defaults are the
-    production-scale config 3: 6 orders of l = 0, 1, 2 (54 components) on
-    a 40,000-bin grid."""
-    if name.lower() != "ms_global":
-        raise KeyError(f"unknown demo {name!r}; the port has ms_global")
-    n_orders = n_orders or 6
-    dnu, numax = 100.0, 2500.0
-    n_temps, n_chains, ngrid = 6, 6, ngrid or 40_000
-    lmax = 2
-    plan = PhasePlan(burnin=3000, learning=12000, acquire=15000, thin=5)
+
+def _ms_global_family(name, seed, ngrid, n_orders, device, gen):
+    """configs 3 and 4: MS_Global a1etaa3 with static window segments
+    anchored at params0."""
+    (n_def, dnu, numax, n_temps, ngrid_def, lmax, plan,
+     lambda_temp) = _MS_GLOBAL_CONFIGS[name]
+    n_orders = n_orders or n_def
+    ngrid = ngrid or ngrid_def
     n_per_l = tuple(n_orders if l <= lmax else 0 for l in range(4))
     spec_obj = MSGlobalSpec(n_per_l=n_per_l)
     fn, layout = build_ms_global(spec_obj)
@@ -102,14 +202,8 @@ def make_demo(name: str, seed: int = 0, ngrid: int = None,
     truth, vis_true = _ms_global_truth(layout, n_orders, lmax, dnu, numax,
                                        rng)
     half = dnu * (n_orders / 2 + 1)
-    nu = torch.as_tensor(
-        np.linspace(numax - half, numax + half, ngrid).astype(np.float32),
-        device=device)
-    gen = torch.Generator(device=device).manual_seed(seed)
-    with torch.no_grad():
-        model = fn(torch.as_tensor(truth, dtype=torch.float32, device=device),
-                   nu)
-        spec = model * torch.empty_like(model).exponential_(generator=gen)
+    nu = _grid(numax - half, numax + half, ngrid, device)
+    spec = _chi2_noise(_model(fn, truth, nu), gen)
 
     priors = _ms_global_priors(layout, truth, n_orders, lmax, vis_true)
     p0 = truth.copy()
@@ -117,8 +211,7 @@ def make_demo(name: str, seed: int = 0, ngrid: int = None,
     # the value: that strands frequencies ~100 prior sigmas out)
     free = priors.free_mask
     prob0 = Problem(model_fn=fn, layout=layout, priors=priors, nu=nu,
-                    spec=spec, params0=torch.as_tensor(p0, dtype=torch.float32,
-                                                       device=device))
+                    spec=spec, params0=_f32(p0, device))
     scales = default_init_scales(prob0)                 # (Df,) float32
     p0[free] = p0[free] + 3.0 * scales * rng.standard_normal(free.sum())
     # static truncation windows anchored at p0 (10 uHz margin >> the
@@ -128,13 +221,103 @@ def make_demo(name: str, seed: int = 0, ngrid: int = None,
             int(ngrid), 10.0)
     spec_win = dataclasses.replace(spec_obj, window_hint=hint)
     fn, layout = build_ms_global(spec_win)
-    problem = Problem(model_fn=fn, layout=layout, priors=priors, nu=nu,
-                      spec=spec,
-                      params0=torch.as_tensor(p0, dtype=torch.float32,
-                                              device=device),
-                      extra_logp=build_family_constraints(MODEL_NAME, layout),
-                      model_meta={"name": MODEL_NAME, "spec": spec_win})
-    hp = MALAHyper(use_drift=True, dN_mixing=10, lambda_temp=1.5)
-    return problem, hp, plan, {"truth": truth, "n_temps": n_temps,
-                               "n_chains": n_chains, "model": MODEL_NAME,
-                               "spec_kwargs": {"n_per_l": n_per_l}}
+    problem = _problem(MS_GLOBAL, fn, layout, priors, nu, spec, p0, spec_win)
+    hp = MALAHyper(use_drift=True, dN_mixing=10, lambda_temp=lambda_temp)
+    return problem, hp, plan, _meta(truth, n_temps, 6, MS_GLOBAL,
+                                    {"n_per_l": n_per_l})
+
+
+def _subgiant_mixed(name, seed, ngrid, n_orders, device, gen):
+    """config 5: l=0/2 p modes fitted individually, the l=1 mixed-mode
+    forest from the ARMM solver; `_inertia` turns on the mode-inertia
+    height suppression."""
+    height_kind = ("inertia" if name.endswith("_inertia")
+                   else "equipartition")
+    dnu, dpi1, eps_g, qq = 10.0, 80.0, 0.0, 0.15
+    numin, numax_w = 100.0, 160.0
+    n_orders = n_orders or 5
+    n_p, n_g = count_poles(dnu, dpi1, 0.4, eps_g, numin, numax_w)
+    spec_obj = RGBAsymptSpec(n_orders=n_orders, numin=numin,
+                             numax_win=numax_w, n_p_poles=n_p,
+                             n_g_poles=n_g, height_kind=height_kind)
+    fn, layout = build_rgb_asympt(spec_obj)
+    truth = np.zeros(layout.ndim)
+    f0 = 100.0 + dnu * (np.arange(n_orders) + 0.4)
+    ho = layout.offset("heights")
+    truth[ho:ho + n_orders] = 6.0
+    vo = layout.offset("visibilities")
+    truth[vo:vo + 2] = [1.5, 0.53]
+    o0, o2 = layout.offset("freq_l0"), layout.offset("freq_l2")
+    truth[o0:o0 + n_orders] = f0
+    truth[o2:o2 + n_orders] = f0 - 1.2
+    # O(2) terms (delta0l, alpha_p, alpha_g) zero: first-order truth
+    mo = layout.offset("mixed")
+    truth[mo:mo + 6] = [dpi1, eps_g, qq, 0.0, 0.0, 0.0]
+    ro = layout.offset("rot")
+    truth[ro:ro + 3] = [0.05, 0.4, 0.0]
+    wo = layout.offset("widths")
+    truth[wo:wo + n_orders] = 0.15
+    no = layout.offset("noise")
+    truth[no:no + 10] = [20.0, 0.05, 2.0, -1, -1, 2, -1, -1, 2, 0.1]
+    truth[layout.offset("inclination")] = np.deg2rad(60.0)
+    nu = _grid(numin, numax_w, ngrid or 60_000, device)
+    spec = _chi2_noise(_model(fn, truth, nu), gen)
+    rows = [(f"H_{i}", "jeffreys", 0.2, 100.0) for i in range(n_orders)]
+    rows += [("V2_1", "gaussian", 1.5, 0.1), ("V2_2", "gaussian", 0.53, 0.08)]
+    rows += [(f"f0_{i}", "gaussian", float(f0[i]), 0.3)
+             for i in range(n_orders)]
+    rows += [(f"f2_{i}", "gaussian", float(f0[i] - 1.2), 0.3)
+             for i in range(n_orders)]
+    rows += [("DPi1", "uniform", 60.0, 100.0),
+             ("eps_g", "uniform", -0.5, 0.5),
+             ("q", "uniform", 0.02, 0.5),
+             ("delta0l", "fix"), ("alpha_p", "fix"), ("alpha_g", "fix"),
+             ("a1_env", "uniform", 0.0, 0.5),
+             ("a1_core", "uniform", 0.0, 1.5),
+             ("asym", "fix")]
+    rows += [(f"W_{i}", "jeffreys", 0.02, 2.0) for i in range(n_orders)]
+    rows += [("An1", "fix"), ("Bn1", "fix"), ("pn1", "fix"),
+             ("An2", "fix"), ("Bn2", "fix"), ("pn2", "fix"),
+             ("An3", "fix"), ("Bn3", "fix"), ("pn3", "fix"),
+             ("N0", "jeffreys", 0.01, 2.0),
+             ("inc", "uniform", 0.0, np.pi / 2),
+             ("trunc", "fix")]
+    priors = PriorTable.from_rows(rows)
+    rng = np.random.default_rng(seed)
+    p0 = truth.copy()
+    free = priors.free_mask
+    p0[free] *= (1 + 0.01 * rng.standard_normal(free.sum()))
+    problem = _problem(RGB_ASYMPT, fn, layout, priors, nu, spec, p0,
+                       spec_obj)
+    hp = MALAHyper(use_drift=True, dN_mixing=10, lambda_temp=1.3)
+    plan = PhasePlan(burnin=4000, learning=15000, acquire=20000, thin=5)
+    return problem, hp, plan, _meta(truth, 8, 6, RGB_ASYMPT, {
+        "n_orders": n_orders, "numin": numin, "numax_win": numax_w,
+        "n_p_poles": n_p, "n_g_poles": n_g, "height_kind": height_kind})
+
+
+DEMOS = {
+    "single_lorentzian": _single_lorentzian,
+    "harvey_background": _harvey_background,
+    "ms_global": lambda *a: _ms_global_family("ms_global", *a),
+    "kepler_full": lambda *a: _ms_global_family("kepler_full", *a),
+    "subgiant_mixed": lambda *a: _subgiant_mixed("subgiant_mixed", *a),
+    "subgiant_mixed_inertia":
+        lambda *a: _subgiant_mixed("subgiant_mixed_inertia", *a),
+}
+
+
+def make_demo(name: str, seed: int = 0, ngrid: int = None,
+              n_orders: int = None, device="cpu"):
+    """Returns (problem, hp, plan, meta) on `device`; meta holds the truth.
+
+    ngrid/n_orders scale the MS_Global and subgiant demos down (tests); the
+    defaults are the production-scale configs."""
+    name = name.lower()
+    if name == "ajfit":
+        raise NotImplementedError("the ajfit demo waits for models/ajfit.py "
+                                  "and ops/alm.py, not ported yet")
+    if name not in DEMOS:
+        raise KeyError(f"unknown demo {name!r}; have {', '.join(DEMOS)}")
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return DEMOS[name](seed, ngrid, n_orders, torch.device(device), gen)

@@ -83,6 +83,17 @@ def assemble_components_a1etaa3(freqs_per_l, heights_l0, widths_l0,
                                    eta0, a3, asym)
 
 
+def fixed_noise(layout, fixed):
+    """The noise block of a Problem's `fixed` hand-off (params0 (D,), fixed
+    mask (D,)), as ops/noise.py noise_background's `const`; None without
+    one.  Every model_fn takes `fixed=None` and passes this on, so the
+    background terms whose parameters are all fixed are evaluated once per
+    call, unbatched and outside autograd."""
+    if fixed is None:
+        return None
+    return tuple(layout.get(a, "noise") for a in fixed)
+
+
 def dnu_from_freqs(f0):
     """Mean large separation [uHz] from the l=0 ridge (..., N0) -> (...,)."""
     if f0.shape[-1] < 2:

@@ -6,10 +6,14 @@ Block ABI (BlockLayout, the reference's plength order):
   heights (N0,), visibilities (lmax,), freq_l0..freq_l3, rot [a1, eta0_switch,
   a3, asym], widths (N0,), noise (3*nh+1,), inclination (1,) [rad], trunc (1,).
 
-`model_fn(params (..., D), nu (N,)) -> (..., N)` is batched over leading dims.
-With a `window_hint` the Lorentzian sum runs over static window segments
-anchored at params0 (the reference's c*Gamma truncation algorithm) through
-the segment-mode kernels on CUDA.
+`model_fn(params (..., D), nu (N,), fixed=None) -> (..., N)` is batched over
+leading dims; `fixed` is the Problem's (params0, fixed mask) hand-off
+(models/common.py fixed_noise).  Widths are free per order, or the
+Appourchaux+2016 relation (`width_kind="app2016"`, ops/widths.py) over the
+l=0 ridge.  With a `window_hint` the Lorentzian sum runs over static window
+segments anchored at params0 (the reference's c*Gamma truncation algorithm)
+through the segment-mode kernels on CUDA; without one, through the dense
+mode.
 """
 
 from __future__ import annotations
@@ -21,12 +25,13 @@ import numpy as np
 import torch
 
 from tamcmc_tpu_torch.models.common import (
-    assemble_components_a1etaa3, dnu_from_freqs)
+    assemble_components_a1etaa3, dnu_from_freqs, fixed_noise)
 from tamcmc_tpu_torch.ops.lorentzian import (
     make_static_window_groups, partition_window_groups, segment_values,
     sum_lorentzians, sum_lorentzians_segments)
 from tamcmc_tpu_torch.ops.lorentzian_kernel import segment_plan
 from tamcmc_tpu_torch.ops.noise import noise_background
+from tamcmc_tpu_torch.ops.widths import appourchaux2016_width
 from tamcmc_tpu_torch.utils.blocks import BlockLayout
 from tamcmc_tpu_torch.utils.constants import DNU_SUN, G_CGS, RHO_SUN
 
@@ -35,13 +40,13 @@ from tamcmc_tpu_torch.utils.constants import DNU_SUN, G_CGS, RHO_SUN
 class MSGlobalSpec:
     """Static structure of an MS-Global problem (fixes all shapes).  Same
     fields as the reference's spec; this port builds the a1etaa3 rotation
-    with free widths and refuses the others."""
+    and refuses the other laws."""
     n_per_l: tuple          # mode counts for l=0..3, e.g. (6, 6, 6, 0)
     n_harvey: int = 3
     rotation: str = "a1etaa3"
     alm_filter: str = "gate"
     noise_kind: str = "harvey_like"   # or "harvey_1985"
-    width_kind: str = "free"
+    width_kind: str = "free"          # or "app2016" (6-parameter relation)
     window_hint: tuple = None   # (params0_tuple, nu_start, nu_step, n_bins,
                                 # margin_uHz) -> static window segments
 
@@ -109,15 +114,22 @@ def build_ms_global(spec: MSGlobalSpec):
     block) and, with spec.window_hint, `_window_groups` (the disjoint
     segments), `_plan` (their kernel plan, built once here) and the
     `_segments_and_bg` hook of the piece-wise likelihood."""
-    if spec.rotation != "a1etaa3" or spec.width_kind != "free":
-        raise NotImplementedError(
-            f"rotation={spec.rotation!r}, width_kind={spec.width_kind!r}: "
-            "only the a1etaa3 law with free widths is ported")
+    if spec.rotation != "a1etaa3":
+        raise NotImplementedError(f"rotation={spec.rotation!r}: only the "
+                                  "a1etaa3 law is ported")
+    if spec.width_kind not in ("free", "app2016"):
+        raise ValueError(f"unknown width_kind {spec.width_kind!r}")
     layout = spec.layout()
 
     def assemble(params):
         heights = layout.get(params, "heights")
         widths = layout.get(params, "widths")
+        if spec.width_kind == "app2016":
+            # the 6-parameter relation on the l=0 ridge; l>0 widths then
+            # come from the usual interpolation
+            widths = appourchaux2016_width(
+                layout.get(params, "freq_l0"),
+                *(widths[..., i, None] for i in range(6)))
         vis = layout.get(params, "visibilities")
         freqs_per_l = [layout.get(params, f"freq_l{l}") for l in range(4)]
         rot = layout.get(params, "rot")
@@ -135,14 +147,15 @@ def build_ms_global(spec: MSGlobalSpec):
         ncomp = sum(n * (2 * l + 1) for l, n in enumerate(spec.n_per_l))
         plan = segment_plan(groups, ncomp, int(spec.window_hint[3]))
 
-    def model_fn(params, nu):
+    def model_fn(params, nu, fixed=None):
         H, C, W, B, noise = assemble(params)
         if groups is not None:
             modes = sum_lorentzians_segments(nu, H, C, W, B, groups, plan)
         else:
             modes = sum_lorentzians(nu, H, C, W, B)
         return modes + noise_background(nu, noise, n_harvey=spec.n_harvey,
-                                        kind=spec.noise_kind)
+                                        kind=spec.noise_kind,
+                                        const=fixed_noise(layout, fixed))
 
     model_fn._assemble = assemble      # params -> (H, C, W, B, noise)
     model_fn._window_groups = groups
@@ -153,14 +166,10 @@ def build_ms_global(spec: MSGlobalSpec):
             bins [lo, hi), without the assembled spectrum; feeds
             likelihood_chi22p_pieces.
 
-            fixed: optional (params0 (D,), fixed mask (D,)) from the
-            Problem.  The background terms whose parameters are all fixed
-            are then evaluated once per call, not once per walker, and get
-            no gradient (see ops/noise.py noise_background `const`)."""
+            fixed: as model_fn's."""
             H, C, W, B, noise = assemble(params)
             # without pieces the background alone carries the walkers' shape
-            const = None if fixed is None or not groups else tuple(
-                layout.get(a, "noise") for a in fixed)
+            const = fixed_noise(layout, fixed) if groups else None
 
             def bg_fn(lo, hi):
                 return noise_background(nu[lo:hi], noise,

@@ -34,6 +34,16 @@ def _on_cuda(*tensors) -> bool:
     return any(t.is_cuda for t in tensors)
 
 
+def lorentzian_profile(nu, height, nu0, width, asym=0.0):
+    """One (possibly asymmetric) Lorentzian on grid nu (n,), plain torch:
+    H [(1 + b x)^2 + b^2] / (1 + x^2), x = 2 (nu - nu0) / max(Gamma, 1e-6).
+    Parameters broadcast against the grid: pass (..., 1) for (..., n)."""
+    w = torch.clamp(width, min=_WFLOOR)
+    x = 2.0 * (nu - nu0) / w
+    num = (1.0 + asym * x) ** 2 + asym ** 2
+    return height * num / (1.0 + x * x)
+
+
 # ---------------------------------------------------------------------------
 # dense sum (plain)
 # ---------------------------------------------------------------------------

@@ -29,6 +29,29 @@ def harvey_1985(nu, A, tc, p):
     return torch.where(active, val, torch.zeros_like(val))
 
 
+def kallinger2014(nu, noise_params, nu_nyquist):
+    """Kallinger et al. (2014, A&A 570, A41) granulation background: two
+    slope-4 super-Lorentzians, each normalised to its rms amplitude squared,
+    apodised by the sinc^2 sampling response, plus white noise:
+
+        N(nu) = eta^2(nu) sum_i xi a_i^2 / b_i / (1 + (nu/b_i)^4) + W
+        eta(nu) = sinc(pi/2 nu/nu_nyq),   xi = 2 sqrt(2) / pi
+
+    noise_params: (..., 5) = [a1, b1, a2, b2, W] (a in ppm, b in uHz) ->
+    (..., n)."""
+    xi = 2.0 * math.sqrt(2.0) / math.pi
+    eta2 = torch.sinc(0.5 * nu / nu_nyquist) ** 2   # sinc(x) = sin(pi x)/(pi x)
+    total = torch.zeros_like(nu)
+    for k in range(2):
+        a = noise_params[..., 2 * k, None]
+        b = noise_params[..., 2 * k + 1, None]
+        active = (a > 0) & (b > 0)
+        safe_b = torch.where(active, b, torch.ones_like(b))
+        comp = xi * a ** 2 / safe_b / (1.0 + (nu / safe_b) ** 4)
+        total = total + torch.where(active, comp, torch.zeros_like(comp))
+    return eta2 * total + torch.clamp(noise_params[..., 4, None], min=0.0)
+
+
 def noise_background(nu, noise_params, n_harvey: int = 3,
                      kind: str = "harvey_like", const=None):
     """n_harvey components + white noise on grid nu (n,).

@@ -22,7 +22,7 @@ from tamcmc_tpu_torch.utils.blocks import BlockLayout
 
 @dataclasses.dataclass(frozen=True)
 class Problem:
-    model_fn: Callable            # (full_params (..., D), nu) -> (..., N)
+    model_fn: Callable            # (full (..., D), nu, fixed=None) -> (..., N)
     layout: BlockLayout
     priors: PriorTable
     nu: torch.Tensor              # (N,) frequency grid
@@ -82,9 +82,9 @@ class Problem:
         A/B/p are frozen, the common production setup) is computed once per
         step, not once per walker, and gets no gradient.  Eager torch
         materialises the fixed runs into every row, so the port keeps that
-        property explicitly instead: `_logL_from_full` hands the window hook
-        (params0, fixed mask), and the model evaluates its all-fixed terms
-        once from params0."""
+        property explicitly instead: `_logL_from_full` hands the model (its
+        window hook or its dense model_fn) (params0, fixed mask), and the
+        model evaluates its all-fixed terms once from params0."""
         batch = x.shape[:-1]
         pieces = []
         for is_free, lo, hi, flo in self._embed_runs:
@@ -110,12 +110,12 @@ class Problem:
         return None
 
     def _logL_from_full(self, full):
+        fixed = (self.params0, ~self.priors.free_mask)
         hook = self._pieces_hook
         if hook is not None:
-            segs, bg = hook(full, self.nu,
-                            fixed=(self.params0, ~self.priors.free_mask))
+            segs, bg = hook(full, self.nu, fixed=fixed)
             return likelihood_chi22p_pieces(self.spec, segs, bg)
-        model = self.model_fn(full, self.nu)
+        model = self.model_fn(full, self.nu, fixed=fixed)
         lfn = get_likelihood(self.likelihood)
         if self.likelihood == "chi_square":
             return lfn(self.spec, model, self.sigma_spec, self.mask)

@@ -65,7 +65,9 @@ def tempering_swap(betas, state: SamplerState, parity: int,
         return torch.where(acc, x[partner], x)
 
     att = is_low.to(state.nswap_att.dtype)
-    accf = torch.mean(accept.to(state.nswap_acc.dtype), dim=1) * att
+    # the walker mean as the reference's compiler forms it: the count times
+    # float32(1 / C), so the counters agree bit for bit
+    accf = accept.to(state.nswap_acc.dtype).sum(dim=1) * (1.0 / C) * att
     return state.replace(
         theta=swapped(state.theta, acc3),
         logL=swapped(state.logL, accept),

@@ -1,6 +1,6 @@
 """Family prior assemblers: cross-parameter constraints (port of
-tamcmc_tpu/stats/assemblers.py, MS_Global family; reference `priors_calc.cpp`
-`priors_MS_Global` [U]).
+tamcmc_tpu/stats/assemblers.py, MS_Global and RGB asymptotic families;
+reference `priors_calc.cpp` `priors_MS_Global`, `priors_asymptotic` [U]).
 
 Each constraint is fn(full_params (..., D)) -> (...,): 0 when satisfied and
 NEG_BIG per violation, so a violating proposal is rejected with
@@ -84,12 +84,33 @@ def _ms_global_constraints(layout: BlockLayout):
     return cons
 
 
+def _rgb_constraints(layout: BlockLayout):
+    """p-mode ordering, non-negative heights/widths, the ARMM solver's
+    domain (DPi1 >= 1e-3 s, q >= 1e-4), inclination in [0, pi/2]."""
+    cons = [ordering(layout, b) for b in layout.names
+            if b.startswith("freq_l")]
+    cons.append(bounded(layout, "heights", lo=0.0))
+    if "widths" in layout.names:
+        cons.append(bounded(layout, "widths", lo=0.0))
+    if "mixed" in layout.names:
+        cons.append(bounded(layout, "mixed", lo=1e-3, index=0))  # DPi1
+        cons.append(bounded(layout, "mixed", lo=1e-4, index=2))  # q
+    if "inclination" in layout.names:
+        cons.append(bounded(layout, "inclination", lo=0.0, hi=math.pi / 2))
+    return cons
+
+
 def build_family_constraints(model_name: str,
                              layout: BlockLayout) -> Optional[Callable]:
-    """Model name -> composed extra_logp, matched on the family prefix.
-    Only the MS_Global family is ported; other families raise."""
+    """Model name -> composed extra_logp, matched on the family prefix;
+    None for the test and background families (per-parameter priors
+    suffice).  The MS_local and ajfit families are not ported and raise."""
     name = model_name.strip().lower()
     if name.startswith("model_ms_global"):
         return compose(*_ms_global_constraints(layout))
-    raise NotImplementedError(f"family constraints for {model_name!r} are "
-                              "not ported (MS_Global only)")
+    if name.startswith("model_rgb_asympt"):
+        return compose(*_rgb_constraints(layout))
+    if name.startswith(("model_ms_local", "model_ajfit")):
+        raise NotImplementedError(f"family constraints for {model_name!r} "
+                                  "are not ported")
+    return None

@@ -1,15 +1,21 @@
-"""Per-layer time of one tempered MALA step of the ms_global demo on a GPU.
+"""Per-layer time of one tempered MALA step of a demo on a GPU.
 
-    python -m tamcmc_tpu_torch.step_profile [--temps 6] [--chains 128]
-        [--steps 100] [--reps 30] [--out chiprun_out/step_profile.json]
+    python -m tamcmc_tpu_torch.step_profile [--demo ms_global] [--temps T]
+        [--chains 128] [--steps 100] [--reps 30]
+        [--out chiprun_out/step_profile.json]
 
-Each piece of the step (assembly, background, segment kernels, piece-wise
-likelihood, one backward, prior, the full step, the swap sweep) is run on
-the same state, after warm-up, and timed twice:
+T defaults to the demo's own (6 for ms_global, 10 for kepler_full, 8 for
+subgiant_mixed).  Each piece of the step (assembly, background, the
+Lorentzian kernels: segment mode for the windowed MS_Global demos, dense
+mode otherwise, the likelihood given the modes, one backward, prior, the
+full step, the swap sweep) is run on the same state, after warm-up, and
+timed twice:
   host_ms    synchronised wall time per call, averaged over `--reps` calls;
-  device_ms  busy device time per call from torch.profiler (the sum of the
-             kernels' and copies' device time), over `--reps` calls;
-  launches   device operations per call in that profile.
+  device_ms  busy device time per call from torch.profiler: the union of
+             the kernels', copies' and fills' intervals, over `--reps` calls;
+  launches   device operations per call in that profile;
+  span_ms    CUDA-event time per call on the stream over the same calls,
+             idle gaps included (device_ms <= span_ms).
 The whole step is also timed on the host over `--steps` steps, adaptive and
 frozen, and in an interleaved A/B against the same step with the background
 evaluated per walker.  Every host timing runs before the first profiler
@@ -33,6 +39,8 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+DEVICE_WORK = ("kernel", "gpu_memcpy", "gpu_memset")   # kineto activity types
+
 
 def _host_ms(fn, reps, dev):
     torch.cuda.synchronize(dev)
@@ -43,27 +51,49 @@ def _host_ms(fn, reps, dev):
     return 1e3 * (time.perf_counter() - t0) / reps
 
 
+def _device_work(e):
+    """A kernel, copy or fill on the card, not an annotation range."""
+    if e.device_type() != DeviceType.CUDA:
+        return False
+    if hasattr(e, "activity_type"):         # newer torch
+        return e.activity_type() in DEVICE_WORK
+    return not getattr(e, "is_user_annotation", lambda: False)()
+
+
 def _device_ms(fn, reps, dev):
-    """(busy device ms per call, device operations per call)."""
+    """(busy device ms per call, device operations per call, device span
+    ms per call).  Busy time is the union of the intervals of the kernels,
+    copies and fills in the profiler's raw event list; the span is CUDA
+    events on the stream around all calls, idle gaps included, so busy <=
+    span."""
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize(dev)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        start.record()
         for _ in range(reps):
             fn()
+        stop.record()
         torch.cuda.synchronize(dev)
-    busy_us, ops = 0.0, 0
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
-            # device_time_total on current torch, cuda_time_total before it
-            busy_us += getattr(e, "device_time_total", None) \
-                or e.cuda_time_total
-            ops += e.count
-    return busy_us / 1e3 / reps, ops / reps
+    spans = sorted((e.start_ns(), e.end_ns())
+                   for e in prof.profiler.kineto_results.events()
+                   if _device_work(e))
+    if not spans:
+        raise RuntimeError("the profiler recorded no device work")
+    busy_ns, end = 0, 0
+    for lo, hi in spans:
+        busy_ns += max(0, hi - max(lo, end))
+        end = max(end, hi)
+    return (busy_ns / 1e6 / reps, len(spans) / reps,
+            start.elapsed_time(stop) / reps)
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--temps", type=int, default=6)
+    ap.add_argument("--demo", default="ms_global")
+    ap.add_argument("--temps", type=int,
+                    help="temperatures (default: the demo's)")
     ap.add_argument("--chains", type=int, default=128)
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--reps", type=int, default=30)
@@ -75,22 +105,26 @@ def main(argv=None):
         raise SystemExit("step_profile needs a CUDA device")
 
     from tamcmc_tpu_torch.demos import make_demo
-    from tamcmc_tpu_torch.ops.lorentzian import segment_values
+    from tamcmc_tpu_torch.models.common import fixed_noise
+    from tamcmc_tpu_torch.ops.lorentzian import segment_values, sum_lorentzians
     from tamcmc_tpu_torch.ops.noise import noise_background
     from tamcmc_tpu_torch.sampler.driver import raw_step
     from tamcmc_tpu_torch.sampler.mala import init_state, mala_step
     from tamcmc_tpu_torch.sampler.tempering import (make_beta_ladder,
                                                     tempering_swap)
-    from tamcmc_tpu_torch.stats.likelihoods import likelihood_chi22p_pieces
+    from tamcmc_tpu_torch.stats.likelihoods import (likelihood_chi22p,
+                                                    likelihood_chi22p_pieces)
 
     dev = torch.device("cuda", 0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True
     ).stdout.strip().splitlines()[0]
-    problem, hp, _, _ = make_demo("ms_global", seed=args.seed, device=dev)
+    problem, hp, _, meta = make_demo(args.demo, seed=args.seed, device=dev)
+    args.temps = args.temps or meta["n_temps"]
     fn, layout = problem.model_fn, problem.layout
     spec = problem.model_meta["spec"]
+    segments = getattr(fn, "_window_groups", None) is not None
     betas = make_beta_ladder(args.temps, hp.lambda_temp, device=dev)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     state = init_state(problem, hp, args.temps, args.chains, gen)
@@ -99,29 +133,47 @@ def main(argv=None):
 
     x = state.u_center + state.u_scale * state.theta     # (T, C, Df)
     fixed = (problem.params0, ~problem.priors.free_mask)
-    const = tuple(layout.get(a, "noise") for a in fixed)
+    const = fixed_noise(layout, fixed)
     nu = problem.nu
-    with torch.no_grad():
-        full = problem.embed(x)
-        H, C, W, B, noise = fn._assemble(full)
-        pieces = segment_values(nu, H, C, W, B, fn._window_groups, fn._plan)
+
+    def per_walker_model(params, nu_, fixed=None):
+        return fn(params, nu_)
+
+    # the model without the Problem's fixed mask: the per-walker background
+    if segments:
+        per_walker_model._segments_and_bg = \
+            lambda params, nu_, fixed=None: fn._segments_and_bg(params, nu_)
+    per_walker = dataclasses.replace(problem, model_fn=per_walker_model)
+
+    def modes_fn(H, C, W, B):
+        if segments:
+            return segment_values(nu, H, C, W, B, fn._window_groups,
+                                  fn._plan)
+        return sum_lorentzians(nu, H, C, W, B)
 
     def bg(c):
         return noise_background(nu, noise, n_harvey=spec.n_harvey,
                                 kind=spec.noise_kind, const=c)
 
-    def logL_fwd_bwd():
-        xl = x.detach().requires_grad_(True)
-        logL = problem._logL_from_full(problem.embed(xl))
-        torch.autograd.grad(logL.sum(), xl)
+    def likelihood_given(modes):
+        """The likelihood from the modes, background (fixed terms once)
+        included."""
+        if segments:
+            return likelihood_chi22p_pieces(problem.spec, modes,
+                                            lambda lo, hi: bg(const))
+        return likelihood_chi22p(problem.spec, modes + bg(const))
 
-    def logL_fwd_bwd_per_walker_bg():
-        """The same, with the background evaluated per walker (the hook
-        without the Problem's fixed mask)."""
-        xl = x.detach().requires_grad_(True)
-        segs, bg_fn = fn._segments_and_bg(problem.embed(xl), nu)
-        logL = likelihood_chi22p_pieces(problem.spec, segs, bg_fn)
-        torch.autograd.grad(logL.sum(), xl)
+    with torch.no_grad():
+        full = problem.embed(x)
+        H, C, W, B, noise = fn._assemble(full)
+        modes = modes_fn(H, C, W, B)
+
+    def logL_fwd_bwd(prob):
+        def run():
+            xl = x.detach().requires_grad_(True)
+            logL = prob._logL_from_full(prob.embed(xl))
+            torch.autograd.grad(logL.sum(), xl)
+        return run
 
     def logP_fwd_bwd():
         xp = x.detach().requires_grad_(True)
@@ -138,15 +190,14 @@ def main(argv=None):
         ("assembly fwd", nograd(lambda: fn._assemble(problem.embed(x)))),
         ("background, per walker", nograd(lambda: bg(None))),
         ("background, fixed terms once", nograd(lambda: bg(const))),
-        ("segment pieces (fwd kernel)", nograd(lambda: segment_values(
-            nu, H, C, W, B, fn._window_groups, fn._plan))),
-        ("chi22p pieces given the pieces", nograd(
-            lambda: likelihood_chi22p_pieces(problem.spec, pieces,
-                                             lambda lo, hi: bg(const)))),
+        (("segment pieces" if segments else "dense sum") + " (fwd kernel)",
+         nograd(lambda: modes_fn(H, C, W, B))),
+        ("chi22p given the modes", nograd(
+            lambda: likelihood_given(modes))),
         ("logL fwd", nograd(lambda: problem._logL_from_full(
             problem.embed(x)))),
-        ("logL fwd+bwd", logL_fwd_bwd),
-        ("logL fwd+bwd, per-walker background", logL_fwd_bwd_per_walker_bg),
+        ("logL fwd+bwd", logL_fwd_bwd(problem)),
+        ("logL fwd+bwd, per-walker background", logL_fwd_bwd(per_walker)),
         ("logP fwd+bwd", logP_fwd_bwd),
         ("logparts_and_grad", lambda: problem.logparts_and_grad(x)),
         ("mala_step adaptive", lambda: mala_step(problem, hp, betas, state,
@@ -162,13 +213,6 @@ def main(argv=None):
         for _ in range(3):
             f()
         rows.append({"layer": name, "host_ms": _host_ms(f, args.reps, dev)})
-    def per_walker_model(params, nu_):
-        return fn(params, nu_)
-
-    # the hook without the Problem's fixed mask: the per-walker background
-    per_walker_model._segments_and_bg = \
-        lambda params, nu_, fixed=None: fn._segments_and_bg(params, nu_)
-    per_walker = dataclasses.replace(problem, model_fn=per_walker_model)
 
     def step_ms(prob, adapt):
         s = state
@@ -188,15 +232,18 @@ def main(argv=None):
         steps[key].append(step_ms(per_walker if "walker" in key else problem,
                                   True))
     for row, (_, f) in zip(rows, layers):
-        row["device_ms"], row["launches"] = _device_ms(f, args.reps, dev)
+        row["device_ms"], row["launches"], row["span_ms"] = _device_ms(
+            f, args.reps, dev)
     step_dev = next(r["device_ms"] for r in rows
                     if r["layer"] == "mala_step adaptive")
 
-    print(f"T={args.temps} C={args.chains} N={nu.shape[0]}  [{smi}]")
-    print(f"{'layer':40s} {'host ms':>9s} {'device ms':>10s} {'launches':>9s}")
+    print(f"{args.demo}: T={args.temps} C={args.chains} N={nu.shape[0]}  "
+          f"[{smi}]")
+    print(f"{'layer':40s} {'host ms':>9s} {'device ms':>10s} {'launches':>9s}"
+          f" {'span ms':>9s}")
     for r in rows:
         print(f"{r['layer']:40s} {r['host_ms']:9.3f} {r['device_ms']:10.3f} "
-              f"{r['launches']:9.1f}")
+              f"{r['launches']:9.1f} {r['span_ms']:9.3f}")
     print(f"step, host clock over {args.steps} steps: adaptive "
           f"{steps['adaptive']:.3f} ms, frozen {steps['frozen']:.3f} ms; "
           f"device idle share of the adaptive step "
@@ -210,7 +257,8 @@ def main(argv=None):
     out = pathlib.Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps({
-        "device": smi, "torch": torch.__version__, "temps": args.temps,
+        "device": smi, "torch": torch.__version__, "demo": args.demo,
+        "temps": args.temps,
         "chains": args.chains, "n_bins": int(nu.shape[0]), "layers": rows,
         "step_host_ms": steps,
         "idle_share": 1.0 - step_dev / steps["adaptive"]}, indent=1))

@@ -168,10 +168,7 @@ def small_demo():
     """Reference demo at ngrid=4000, 3 orders and the port's problem built
     from its arrays (the reference's spectrum passed in)."""
     jp, _, _, _ = j_make_demo("ms_global", seed=0, ngrid=4000, n_orders=3)
-    spec_fields = dataclasses.asdict(jp.model_meta["spec"])
-    tp = convert.problem_from_arrays(
-        np.asarray(jp.nu), np.asarray(jp.spec), np.asarray(jp.params0),
-        jp.priors.kinds, jp.priors.hypers, jp.priors.names, spec_fields)
+    tp = convert.problem_from_reference(jp)
     rng = np.random.default_rng(5)
     full = np.asarray(jp.params0)[None, :].repeat(3, 0)
     free = jp.priors.free_mask
@@ -232,18 +229,52 @@ def test_segments_and_bg_fixed_noise_matches_jax(small_demo):
     assert np.all(grad[:, noise][:, ~fixed[noise]] != 0)
 
 
-@pytest.mark.parametrize("kw", [dict(ngrid=4000, n_orders=3), dict()])
-def test_make_demo_matches_jax_bitwise(kw):
+# the first two keep their ids; the full-size cases of configs 3 and 4 also
+# pin the segment counts and component-bins per walker
+@pytest.mark.parametrize("name,kw", [
+    pytest.param("ms_global", dict(ngrid=4000, n_orders=3), id="kw0"),
+    pytest.param("ms_global", dict(), id="kw1"),
+    pytest.param("kepler_full", dict(ngrid=4000, n_orders=3),
+                 id="kepler_full-small"),
+    pytest.param("kepler_full", dict(), id="kepler_full"),
+    pytest.param("subgiant_mixed", dict(ngrid=3000, n_orders=3),
+                 id="subgiant_mixed-small"),
+    pytest.param("subgiant_mixed", dict(), id="subgiant_mixed"),
+    pytest.param("subgiant_mixed_inertia", dict(ngrid=3000, n_orders=2),
+                 id="subgiant_mixed_inertia-small"),
+    pytest.param("subgiant_mixed_inertia", dict(),
+                 id="subgiant_mixed_inertia"),
+    pytest.param("single_lorentzian", dict(seed=3), id="single_lorentzian"),
+    pytest.param("harvey_background", dict(seed=3),
+                 id="harvey_background-seed3"),
+    pytest.param("harvey_background", dict(), id="harvey_background"),
+])
+def test_make_demo_matches_jax_bitwise(name, kw):
     """truth and params0 bitwise equal, hence identical window segments
-    (35 segments, 536,675 component-bins per walker at full size)."""
-    jp, jhp, jplan, jmeta = j_make_demo("ms_global", seed=0, **kw)
-    tp, thp, tplan, tmeta = t_make_demo("ms_global", seed=0, **kw)
+    (config 3: 35 segments, 536,675 component-bins per walker at full size;
+    config 4: 194 segments, 3,682,749)."""
+    kw = dict(seed=0, **kw) if "seed" not in kw else kw
+    jp, jhp, jplan, jmeta = j_make_demo(name, **kw)
+    tp, thp, tplan, tmeta = t_make_demo(name, **kw)
     np.testing.assert_array_equal(tp.params0.numpy(), np.asarray(jp.params0))
     np.testing.assert_array_equal(tmeta["truth"], jmeta["truth"])
-    assert tp.model_fn._window_groups == jp.model_fn._window_groups
+    assert tmeta["truth"].dtype == np.asarray(jmeta["truth"]).dtype
+    assert tp.nu.shape == jp.nu.shape
+    assert tp.likelihood == jp.likelihood
+    assert (tp.sigma_spec is None) == (jp.sigma_spec is None)
+    assert tp.model_meta["name"] == jp.model_meta["name"]
+    assert {k: v for k, v in tmeta.items() if k != "truth"} == \
+        {k: v for k, v in jmeta.items() if k != "truth"}
+    assert (getattr(tp.model_fn, "_window_groups", None)
+            == getattr(jp.model_fn, "_window_groups", None))
     assert dataclasses.asdict(thp) == dataclasses.asdict(jhp)
     assert dataclasses.asdict(tplan) == dataclasses.asdict(jplan)
     assert tp.free_names == jp.free_names
-    if not kw:
-        assert len(tp.model_fn._window_groups) == 35
-        assert tp.model_fn._plan.comp_bins() == 536_675
+    if jp.model_meta["spec"] is not None:
+        assert dataclasses.asdict(tp.model_meta["spec"]) == \
+            dataclasses.asdict(jp.model_meta["spec"])
+    if not kw.keys() - {"seed"} and name in ("ms_global", "kepler_full"):
+        segs, bins = {"ms_global": (35, 536_675),
+                      "kepler_full": (194, 3_682_749)}[name]
+        assert len(tp.model_fn._window_groups) == segs
+        assert tp.model_fn._plan.comp_bins() == bins

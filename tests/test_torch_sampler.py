@@ -28,7 +28,10 @@ from tamcmc_tpu_torch.stats.priors import PriorKind, PriorTable
 
 torch.set_num_threads(1)
 
-T, C = 2, 10       # 2*C >= Df = 16: the ensemble covariance estimator
+T, C = 2, 10       # 2*C >= Df (16, 19, 17): the ensemble covariance estimator
+
+
+LOG_SIGMA = {"ms_global": -0.6, "kepler_full": 0.6, "subgiant_mixed": -0.6}
 
 
 def _rel(a, b):
@@ -62,15 +65,15 @@ def test_log_prior_all_kinds_matches_jax():
     np.testing.assert_allclose(g_t.numpy(), g_j, rtol=1e-5, atol=1e-6)
 
 
-@pytest.fixture(scope="module")
-def pair():
-    """The reference demo at 2 orders on a 2000-bin grid, the port's
-    problem built from its arrays, and a shared non-trivial state."""
-    jp, jhp, _, _ = j_make_demo("ms_global", seed=0, ngrid=2000, n_orders=2)
-    tp = convert.problem_from_arrays(
-        np.asarray(jp.nu), np.asarray(jp.spec), np.asarray(jp.params0),
-        jp.priors.kinds, jp.priors.hypers, jp.priors.names,
-        dataclasses.asdict(jp.model_meta["spec"]))
+@pytest.fixture(scope="module",
+                params=["ms_global", "kepler_full", "subgiant_mixed"])
+def pair(request):
+    """The reference demo (configs 3, 4 and 5) at 2 orders on a 2000-bin
+    grid, the port's problem built from its arrays, and a shared
+    non-trivial state."""
+    jp, jhp, _, _ = j_make_demo(request.param, seed=0, ngrid=2000,
+                                n_orders=2)
+    tp = convert.problem_from_reference(jp)
     Df = jp.ndim_free
     rng = np.random.default_rng(7)
     from tamcmc_tpu.sampler.mala import default_init_scales
@@ -88,7 +91,9 @@ def pair():
         mu=rng.normal(0.0, 0.1, (T, C, Df)).astype(np.float32),
         cov=cov, chol=chol,
         ichol=np.linalg.inv(chol.astype(np.float64)).astype(np.float32),
-        log_sigma=rng.normal(-0.6, 0.2, (T, C)).astype(np.float32),
+        # a step size at which some walkers of each demo are rejected
+        log_sigma=rng.normal(LOG_SIGMA[request.param], 0.2, (T, C))
+        .astype(np.float32),
         step=np.asarray(9, np.int32),      # the next step refreshes chol
         naccept=np.zeros(T, np.float32), nprop=np.asarray(9.0, np.float32),
         acc_rate=rng.uniform(0.3, 0.7, (T, C)).astype(np.float32),

@@ -3,6 +3,7 @@ port's CLI at a tiny size, its outputs read by the reference package's
 reader, and the port importing and running with JAX and tamcmc_tpu refused.
 """
 
+import json
 import os
 import pathlib
 import subprocess
@@ -30,6 +31,10 @@ TINY = ["--demo", "ms_global", "--device", "cpu", "--n-orders", "2",
         "--ngrid", "2000", "--temps", "2", "--chains", "4", "--burnin", "30",
         "--learning", "30", "--acquire", "30", "--thin", "5"]
 DF = 16            # free parameters of the 2-order demo
+SUBGIANT_TINY = ["--demo", "subgiant_mixed", "--device", "cpu", "--n-orders",
+                 "2", "--ngrid", "2000", "--temps", "2", "--chains", "4",
+                 "--burnin", "10", "--learning", "10", "--acquire", "10",
+                 "--thin", "5"]
 
 
 def test_run_outputs_read_by_reference(tmp_path):
@@ -99,7 +104,7 @@ def test_chip_smoke_without_gpu_fails_and_prints_no_result():
 
 
 ISOLATED = textwrap.dedent("""
-    import importlib, importlib.abc, pkgutil, sys
+    import importlib, importlib.abc, json, pkgutil, sys
     BLOCKED = {"jax", "jaxlib", "flax", "tamcmc_tpu"}
 
     class Refuse(importlib.abc.MetaPathFinder):
@@ -117,7 +122,8 @@ ISOLATED = textwrap.dedent("""
     for m in mods:
         importlib.import_module(m)
     from tamcmc_tpu_torch import cli
-    cli.main(["run", *sys.argv[2:], "--outdir", sys.argv[1]])
+    for outdir, *args in json.loads(sys.argv[1]):
+        cli.main(["run", *args, "--outdir", outdir])
     leaked = sorted(k for k in sys.modules if k.split(".")[0] in BLOCKED)
     assert not leaked, leaked
     print("isolated-ok", len(mods))
@@ -125,11 +131,16 @@ ISOLATED = textwrap.dedent("""
 
 
 def test_port_runs_without_jax_or_reference(tmp_path):
+    """Every module imports, and `run` drives configs 3 and 5 (the ARMM
+    solver and the dense path included), with jax and tamcmc_tpu refused."""
     env = dict(os.environ, PYTHONPATH=str(ROOT))
+    runs = [[str(tmp_path / "ms_global"), *TINY],
+            [str(tmp_path / "subgiant_mixed"), *SUBGIANT_TINY]]
     proc = subprocess.run(
-        [sys.executable, "-c", ISOLATED, str(tmp_path), *TINY],
+        [sys.executable, "-c", ISOLATED, json.dumps(runs)],
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "isolated-ok" in proc.stdout
-    assert int(proc.stdout.split("isolated-ok")[1]) >= 20
-    assert (tmp_path / "A_samples.hdr").exists()
+    assert int(proc.stdout.split("isolated-ok")[1]) >= 25
+    for outdir, *_ in runs:
+        assert (pathlib.Path(outdir) / "A_samples.hdr").exists()
