@@ -248,22 +248,23 @@ def partition_window_groups(groups):
 # ---------------------------------------------------------------------------
 
 def _kernel_sum(nu, H, C, W, B, win, plan):
-    """Flatten leading dims to the kernel's (Bt, NC) and back."""
+    """Flatten leading dims to the kernel's (Bt, NC) and back; `win` is
+    None unless the plan is windowed."""
     lead, nc = H.shape[:-1], H.shape[-1]
 
     def flat(a):
         return a.expand(lead + (nc,)).reshape(-1, nc).contiguous()
 
     out = _kernel.windowed_lorentzian_sum(
-        nu.contiguous(), flat(H), flat(C), flat(W), flat(B), flat(win), plan)
+        nu.contiguous(), flat(H), flat(C), flat(W), flat(B),
+        None if win is None else flat(win), plan)
     return out.reshape(lead + (nu.shape[0],))
 
 
 def sum_lorentzians(nu, H, C, W, B):
     """Dense Lorentzian sum: nu (N,), params (..., NC) -> (..., N)."""
     if _on_cuda(nu, H):
-        win = torch.full_like(H, float("inf"))
-        return _kernel_sum(nu, H, C, W, B, win,
+        return _kernel_sum(nu, H, C, W, B, None,
                            _kernel.dense_plan(nu.shape[0], H.shape[-1]))
     return sum_lorentzians_plain(nu, H, C, W, B)
 
@@ -276,8 +277,8 @@ def sum_lorentzians_trunc_batched(nu, H, C, W, B, win):
     bin with the per-bin window mask; CPU tensors take the plain
     `sum_lorentzians_trunc` with identical semantics."""
     if _on_cuda(nu, H):
-        return _kernel_sum(nu, H, C, W, B, win,
-                           _kernel.dense_plan(nu.shape[0], H.shape[-1]))
+        return _kernel_sum(nu, H, C, W, B, win, _kernel.dense_plan(
+            nu.shape[0], H.shape[-1], windowed=True))
     return sum_lorentzians_trunc(nu, H, C, W, B, win)
 
 
@@ -296,8 +297,7 @@ def _segment_pieces_from_full(full, segments):
 def _kernel_segments_full(nu, H, C, W, B, segments, plan):
     if plan is None:
         plan = _kernel.segment_plan(segments, H.shape[-1], nu.shape[0])
-    win = torch.full_like(H, float("inf"))
-    return _kernel_sum(nu, H, C, W, B, win, plan)
+    return _kernel_sum(nu, H, C, W, B, None, plan)
 
 
 def segment_values_plain(nu, H, C, W, B, segments):

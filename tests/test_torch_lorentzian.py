@@ -4,8 +4,8 @@ Every input is made once with numpy from a seed and fed to both packages.
 On the CPU the port runs its plain torch versions; the JAX windowed entry
 `sum_lorentzians_trunc_batched` falls back to `sum_lorentzians_trunc` there.
 The CUDA kernels themselves are checked on the card by chip_smoke.py; here
-their host-side plan (ranges, tiles, CSR) is checked by replaying the
-kernels' traversal in numpy.
+their host-side plan (ranges, forward tiles, backward chunks and slots) is
+checked by replaying the kernels' traversal in numpy.
 
 Tolerances (float32): values rtol 2e-5, atol 1e-5; gradients rtol 3e-3,
 atol 3e-4 (the reference's tests/test_pallas.py bounds: the closed-form
@@ -157,20 +157,21 @@ def test_segments_match_jax():
 def test_segment_plan_covers_each_pair_once():
     _, args, segs, _ = _segment_case(n=1000, ncomp=30)
     ncomp = args[0].shape[1]
-    plan = tk.segment_plan(segs, ncomp, 1000)
+    plan = tk.segment_plan(segs, ncomp, 1000, tile=64, chunk=96)
     want = sorted((k, n) for idx, lo, hi in segs for k in idx
                   for n in range(lo, hi))
     got = []
     for t in range(plan.n_tiles):           # the forward kernel's traversal
-        for k in plan.tile_comp[plan.tile_ptr[t]:plan.tile_ptr[t + 1]]:
-            for n in range(t * tk.TILE, min((t + 1) * tk.TILE, 1000)):
-                if plan.comp_lo[k] <= n < plan.comp_hi[k]:
-                    got.append((int(k), n))
+        bins = range(t * plan.tile, min((t + 1) * plan.tile, 1000))
+        for p in range(plan.tile_ptr[t], plan.tile_ptr[t + 1]):
+            k = int(plan.tile_comp[p])
+            if p < plan.tile_full[t]:       # whole tile, no range test
+                got.extend((k, n) for n in bins)
+            else:
+                got.extend((k, n) for n in bins
+                           if plan.comp_lo[k] <= n < plan.comp_hi[k])
     assert sorted(got) == want and len(set(got)) == len(got)
-    # the backward kernel's traversal: each component over its range
-    bwd = sorted((k, n) for k in range(ncomp)
-                 for n in range(plan.comp_lo[k], plan.comp_hi[k]))
-    assert bwd == want
+    assert _bwd_pairs(plan) == want         # the backward's, slot by slot
     assert plan.comp_bins() == len(want)
 
 
@@ -180,59 +181,117 @@ def test_segment_plan_rejects_non_adjacent_segments():
         tk.segment_plan(segs, 2, 50)
 
 
+def _slot_range(plan, ch, s):
+    """Bins [start, end) of chunk `ch`, relative to its first bin, that the
+    backward's first kernel reduces for slot `s`."""
+    c0 = ch * plan.chunk
+    ln = min(plan.chunk, plan.n_bins - c0)
+    if s < plan.chunk_full[ch]:             # covers the whole chunk
+        return c0, 0, ln
+    k = plan.chunk_comp[s]
+    return (c0, max(int(plan.comp_lo[k]) - c0, 0),
+            min(int(plan.comp_hi[k]) - c0, ln))
+
+
+def _bwd_pairs(plan):
+    """Sorted (component, bin) pairs the backward's slots reduce."""
+    got = []
+    for ch in range(plan.n_chunks):
+        for s in range(plan.chunk_ptr[ch], plan.chunk_ptr[ch + 1]):
+            c0, start, end = _slot_range(plan, ch, s)
+            got.extend((int(plan.chunk_comp[s]), c0 + i)
+                       for i in range(start, end))
+    return sorted(got)
+
+
 def _replay_kernels(plan, nu, H, C, W, B, win, g):
-    """numpy replay of csrc/lorentzian.cu: forward per tile over its CSR
-    list with the per-bin range and window masks; backward per component
-    over its range with the closed-form epilogue."""
+    """numpy replay of csrc/lorentzian.cu over a plan.  Forward: per tile,
+    the packed constants (c, iw, h, 2hb), (h b^2, win); components that
+    cover the tile run unmasked and add h b^2 once, the rest masked per bin
+    by range and window.  Backward: per chunk one record of six sums per
+    slot over the slot's part of the staged chunk; per component the
+    records added in chunk order, then the closed-form epilogue."""
     bt, nc = H.shape
-    out = np.zeros((bt, nu.shape[0]), np.float32)
+    n_bins = nu.shape[0]
+    iw = (2.0 / np.maximum(W, 1e-6)).astype(np.float32)
+    pack_a = np.stack([C, iw, H, 2 * H * B], -1)             # (bt, nc, 4)
+    pack_b = np.stack([H * B * B, win if plan.windowed
+                       else np.zeros_like(H)], -1)           # (bt, nc, 2)
+    out = np.zeros((bt, n_bins), np.float32)
     for t in range(plan.n_tiles):
-        n = np.arange(t * tk.TILE, min((t + 1) * tk.TILE, nu.shape[0]))
-        for k in plan.tile_comp[plan.tile_ptr[t]:plan.tile_ptr[t + 1]]:
-            m = (n >= plan.comp_lo[k]) & (n < plan.comp_hi[k])
-            d = nu[n][None, :] - C[:, k:k + 1]
-            x = d * (2.0 / np.maximum(W[:, k:k + 1], 1e-6))
-            v = H[:, k:k + 1] * B[:, k:k + 1] ** 2 \
-                + (H[:, k:k + 1] + 2 * H[:, k:k + 1] * B[:, k:k + 1] * x) \
-                / (1 + x * x)
-            out[:, n] += np.where(m & (np.abs(d) <= win[:, k:k + 1]), v, 0)
+        n = np.arange(t * plan.tile, min((t + 1) * plan.tile, n_bins))
+        acc = np.zeros((bt, n.shape[0]), np.float32)
+        cst = np.zeros((bt, 1), np.float32)
+        p_full = plan.tile_ptr[t] if plan.windowed else plan.tile_full[t]
+        for p in range(plan.tile_ptr[t], plan.tile_ptr[t + 1]):
+            k = plan.tile_comp[p]
+            c, iwk, h, hb2 = (pack_a[:, k, i:i + 1] for i in range(4))
+            hbb, wn = (pack_b[:, k, i:i + 1] for i in range(2))
+            d = nu[n][None, :] - c
+            x = d * iwk
+            t_inv = (h + hb2 * x) / (1 + x * x)
+            if p < p_full:
+                acc += t_inv
+                cst += hbb
+            else:
+                keep = (n >= plan.comp_lo[k]) & (n < plan.comp_hi[k])
+                if plan.windowed:
+                    keep = keep & (np.abs(d) <= wn)
+                acc += np.where(keep, t_inv + hbb, 0)
+        out[:, n] = acc + cst
+    scratch = np.full((bt, plan.n_slots, tk.BWD_REC), np.nan, np.float32)
+    for ch in range(plan.n_chunks):
+        for s in range(plan.chunk_ptr[ch], plan.chunk_ptr[ch + 1]):
+            c0, start, end = _slot_range(plan, ch, s)
+            k = plan.chunk_comp[s]
+            s_nu = nu[c0 + start:c0 + end]
+            d = s_nu[None, :] - C[:, k:k + 1]
+            x = d * iw[:, k:k + 1]
+            inv = 1 / (1 + x * x)
+            gm = g[:, c0 + start:c0 + end]
+            if plan.windowed:
+                gm = np.where(np.abs(d) <= win[:, k:k + 1], gm, 0)
+            u = gm * inv
+            p = x * u
+            q = p * inv
+            r = x * q
+            scratch[:, s, :6] = np.stack(
+                [a.sum(-1) for a in (gm, u, p, q, r, x * r)], -1)
     grads = np.zeros((4, bt, nc), np.float32)
     for k in range(nc):
-        n = np.arange(plan.comp_lo[k], plan.comp_hi[k])
-        h, b = H[:, k:k + 1], B[:, k:k + 1]
-        iw = 2.0 / np.maximum(W[:, k:k + 1], 1e-6)
-        d = nu[n][None, :] - C[:, k:k + 1]
-        x = d * iw
-        inv = 1 / (1 + x * x)
-        gm = np.where(np.abs(d) <= win[:, k:k + 1], g[:, n], 0)
-        u = gm * inv
-        p = x * u
-        q = p * inv
-        r = x * q
-        s = x * r
-        Gk, Su, Sp, Sq, Sr, Ss = (a.sum(-1, keepdims=True)
-                                  for a in (gm, u, p, q, r, s))
+        sums = np.zeros((bt, 6), np.float32)
+        for i in range(plan.comp_ptr[k], plan.comp_ptr[k + 1]):
+            sums += scratch[:, plan.comp_slot[i], :6]
+        Gk, Su, Sp, Sq, Sr, Ss = sums.T
+        h, b, iwk = H[:, k], B[:, k], iw[:, k]
         hb2 = 2 * h * b
         dx = hb2 * Su - 2 * h * Sq - 2 * hb2 * Sr
         dxx = hb2 * Sp - 2 * h * Sr - 2 * hb2 * Ss
-        grads[0, :, k] = (b * b * Gk + Su + 2 * b * Sp)[:, 0]
-        grads[1, :, k] = (-iw * dx)[:, 0]
-        grads[2, :, k] = np.where(W[:, k:k + 1] > 1e-6,
-                                  -dxx * iw * 0.5, 0)[:, 0]
-        grads[3, :, k] = (hb2 * Gk + 2 * h * Sp)[:, 0]
+        grads[0, :, k] = b * b * Gk + Su + 2 * b * Sp
+        grads[1, :, k] = -iwk * dx
+        grads[2, :, k] = np.where(W[:, k] > 1e-6, -dxx * iwk * 0.5, 0)
+        grads[3, :, k] = hb2 * Gk + 2 * h * Sp
     return out, list(grads)
 
 
+# sizes: the kernels' own (one tile and one chunk at this grid) and small
+# ones that give several tiles per range, chunks cut inside ranges and a
+# ragged last chunk (700 = 7 * 96 + 28)
+@pytest.mark.parametrize("sizes", [{}, {"tile": 64, "chunk": 96}],
+                         ids=["kernel-sizes", "small-sizes"])
 @pytest.mark.parametrize("mode", ["segment", "windowed", "dense"])
-def test_kernel_replay_matches_plain(mode):
+def test_kernel_replay_matches_plain(mode, sizes):
     """The kernels' algorithm over a plan equals the plain reference."""
     nu, args, segs, g = _segment_case(n=700, ncomp=20)
     H, C, W, B = args
     n, nc = nu.shape[0], H.shape[1]
     win = (6.0 * W if mode == "windowed"
            else np.full_like(W, np.inf)).astype(np.float32)
-    plan = tk.segment_plan(segs, nc, n) if mode == "segment" \
-        else tk.dense_plan(n, nc)
+    if mode == "segment":
+        plan = tk.segment_plan(segs, nc, n, **sizes)
+    else:
+        plan = tk.LorentzPlan(np.zeros(nc), np.full(nc, n), n,
+                              windowed=mode == "windowed", **sizes)
     got = _replay_kernels(plan, nu, *args, win, g)
     tnu = torch.as_tensor(nu)
     if mode == "segment":
@@ -244,6 +303,110 @@ def test_kernel_replay_matches_plain(mode):
     _assert_pair(got, want)
 
 
+def _work_list_case(case):
+    """(comp_lo, comp_hi, n_bins, chunk) of a backward work-list case."""
+    if case == "range-longer-than-a-chunk":
+        return [10, 300, 0], [650, 310, 1000], 1000, 128
+    if case == "ragged-last-chunk":
+        return [0, 0, 900], [1001, 1001, 1001], 1001, 256
+    if case == "empty-ranges":
+        return [5, 40, 0, 0], [5, 30, 0, 64], 64, 16
+    if case == "segments":
+        _, args, segs, _ = _segment_case(seed=3, n=2000, ncomp=40)
+        plan = tk.segment_plan(segs, 40, 2000)
+        return plan.comp_lo, plan.comp_hi, 2000, 192
+    if case == "one-chunk":
+        return [0, 7], [50, 33], 50, tk.BWD_CHUNK
+    raise KeyError(case)
+
+
+@pytest.mark.parametrize("case", [
+    "range-longer-than-a-chunk", "ragged-last-chunk", "empty-ranges",
+    "segments", "one-chunk"])
+def test_backward_work_list(case):
+    lo, hi, n_bins, chunk = _work_list_case(case)
+    plan = tk.LorentzPlan(lo, hi, n_bins, chunk=chunk)
+    want = sorted((k, n) for k in range(plan.ncomp)
+                  for n in range(plan.comp_lo[k], plan.comp_hi[k]))
+    got = _bwd_pairs(plan)
+    # every (component, bin) pair of the ranges in exactly one slot
+    assert got == want and len(set(got)) == len(got)
+    # what a block stages fits a block's shared memory, and every staged
+    # start (and every row of g, where n_bins allows) sits on 16 bytes
+    assert plan.bwd_smem_bytes == 2 * 4 * chunk <= tk.SMEM_BUDGET
+    assert all((ch * plan.chunk * 4) % 16 == 0 for ch in range(plan.n_chunks))
+    assert plan.n_chunks == -(-n_bins // chunk)
+    assert plan.n_slots == plan.chunk_ptr[-1] == len(plan.chunk_comp)
+    for ch in range(plan.n_chunks):
+        c0 = ch * chunk
+        c1 = min(c0 + chunk, n_bins)
+        p0, pf, p1 = (plan.chunk_ptr[ch], plan.chunk_full[ch],
+                      plan.chunk_ptr[ch + 1])
+        assert p0 <= pf <= p1
+        for s in range(p0, p1):
+            k = plan.chunk_comp[s]
+            covers = plan.comp_lo[k] <= c0 and plan.comp_hi[k] >= c1
+            assert covers == (s < pf)       # whole-chunk slots come first
+            _, start, end = _slot_range(plan, ch, s)
+            assert 0 <= start < end <= c1 - c0
+    # a component's slots, in chunk order, are exactly its list
+    chunk_of = np.repeat(np.arange(plan.n_chunks), np.diff(plan.chunk_ptr))
+    for k in range(plan.ncomp):
+        slots = plan.comp_slot[plan.comp_ptr[k]:plan.comp_ptr[k + 1]]
+        assert np.all(plan.chunk_comp[slots] == k)
+        assert np.all(np.diff(chunk_of[slots]) > 0)
+        n_cover = 0 if plan.comp_hi[k] <= plan.comp_lo[k] else \
+            (plan.comp_hi[k] - 1) // chunk - plan.comp_lo[k] // chunk + 1
+        assert len(slots) == n_cover
+    if case == "range-longer-than-a-chunk":
+        assert plan.comp_ptr[1] - plan.comp_ptr[0] == 6      # 10..650 by 128
+    if case == "ragged-last-chunk":
+        assert n_bins % chunk and plan.chunk_full[-1] > plan.chunk_ptr[-2]
+    if case == "empty-ranges":
+        assert plan.comp_ptr[1] == plan.comp_ptr[3] == 0     # no slot at all
+
+
+@pytest.mark.parametrize("chunk,ok", [(2048, True), (29056, True),
+                                      (29060, False), (2050, False),
+                                      (0, False)])
+def test_backward_chunk_budget(chunk, ok):
+    """A chunk is a multiple of 4 bins (16-byte staging) whose two staged
+    arrays fit the 232,448 bytes of shared memory a block may use."""
+    if ok:
+        assert tk.LorentzPlan([0], [10], 10, chunk=chunk).bwd_smem_bytes \
+            <= tk.SMEM_BUDGET
+    else:
+        with pytest.raises(ValueError, match="chunk"):
+            tk.LorentzPlan([0], [10], 10, chunk=chunk)
+
+
+# (n_bins, walkers) -> the backward's chunk and whether the forward runs
+# four walkers a block: the slices' shapes keep the full sizes, a few
+# walkers on a short grid get chunks halved down to the floor and one walker
+# a block
+@pytest.mark.parametrize("n_bins,bt,chunk,wide", [
+    (40000, 768, 4096, True), (120000, 1280, 4096, True),
+    (60000, 1024, 4096, True), (60000, 16, 512, False),
+    (12288, 16, 512, False), (12288, 4096, 4096, True), (100, 1, 512, False)])
+def test_plan_sizes_follow_the_grid(n_bins, bt, chunk, wide):
+    plan = tk.dense_plan(n_bins, 5)
+    small = plan.for_walkers(bt)
+    assert small.chunk == chunk and plan.wide_forward(bt) == wide
+    assert small is plan.for_walkers(bt)                     # cached
+    assert (small is plan) == (chunk == tk.BWD_CHUNK)
+    # the same ranges and forward lists, whatever the chunk
+    assert np.array_equal(small.comp_hi, plan.comp_hi)
+    assert np.array_equal(small.tile_comp, plan.tile_comp)
+    assert small.windowed == plan.windowed and small.n_bins == n_bins
+    assert _bwd_pairs(small) == _bwd_pairs(plan)
+
+
+def test_kernel_takes_window_only_with_a_windowed_plan():
+    assert tk.dense_plan(64, 3, windowed=True).windowed
+    assert not tk.dense_plan(64, 3).windowed
+    assert tk.dense_plan(64, 3) is tk.dense_plan(64, 3)      # cached
+
+
 def test_kernel_path_refuses_cpu_tensors():
     """No silent fallback: the kernel entry raises on what it cannot run."""
     nu, args, _ = _mk()
@@ -252,3 +415,25 @@ def test_kernel_path_refuses_cpu_tensors():
         tk.windowed_lorentzian_sum(torch.as_tensor(nu), *t,
                                    torch.full_like(t[0], np.inf),
                                    tk.dense_plan(nu.shape[0], 7))
+
+
+@pytest.mark.parametrize("kind,windowed,bt,nc,n,comp_bins,want_ms,by", [
+    # 9 x 1280 x 3,682,749 operations over 67e12/s
+    ("fwd", False, 1280, 224, 120000, 3682749, 0.633213, "operations"),
+    # 15 x 1024 x 210 x 60,000 over 67e12/s
+    ("bwd", False, 1024, 210, 60000, 210 * 60000, 2.888597, "operations"),
+    ("bwd", True, 16, 11, 12288, 11 * 12288, 0.00051645, "operations"),
+    # one component: 4 (N + Bt N + 4 Bt) bytes over 3.35e12/s
+    ("fwd", False, 8, 1, 1000, 1000, 1.0784e-5, "bytes")])
+def test_bound_counts_what_the_function_needs(kind, windowed, bt, nc, n,
+                                              comp_bins, want_ms, by):
+    ms, bound_by = tk.bound_ms(kind, bt, nc, n, comp_bins, windowed)
+    assert bound_by == by
+    assert ms == pytest.approx(want_ms, rel=1e-4)
+
+
+def test_forget_tickets_drops_the_counters():
+    plan = tk.dense_plan(64, 3)
+    plan._tickets["key"] = object()
+    plan.forget_tickets()
+    assert plan._tickets == {}
