@@ -12,48 +12,22 @@ import dataclasses
 import numpy as np
 import torch
 
-from tamcmc_tpu_torch.models import asymptotic, ms_global, test_models
+from tamcmc_tpu_torch.models import registry
 from tamcmc_tpu_torch.sampler.problem import Problem
 from tamcmc_tpu_torch.sampler.state import SamplerState
 from tamcmc_tpu_torch.stats.assemblers import build_family_constraints
 from tamcmc_tpu_torch.stats.priors import PriorTable
 
-# the ported families by the reference's model name: (spec class, builder)
-FAMILIES = {
-    "model_ms_global_a1etaa3_harveylike":
-        (ms_global.MSGlobalSpec, ms_global.build_ms_global),
-    "model_rgb_asympt_a1etaa3_harveylike":
-        (asymptotic.RGBAsymptSpec, asymptotic.build_rgb_asympt),
-    "model_test_gaussian":
-        (test_models.TestGaussianSpec, test_models.build_test_gaussian),
-    "model_harvey_gaussian":
-        (test_models.HarveyGaussianSpec, test_models.build_harvey_gaussian),
-    "model_single_lorentzian":
-        (test_models.SingleLorentzianSpec,
-         test_models.build_single_lorentzian),
-    "model_harvey_background":
-        (test_models.HarveyBackgroundSpec,
-         test_models.build_harvey_background),
-    "model_kallinger2014_gaussian":
-        (test_models.Kallinger2014Spec, test_models.build_kallinger2014),
-}
-
 
 def build_model(model_name: str, spec_fields=None):
-    """(spec, model_fn, layout) of a ported family from the reference's
-    model name and its spec's fields (dataclasses.asdict of the reference
-    spec, window_hint included; None for the family's default spec)."""
-    key = model_name.strip().lower()
-    if key not in FAMILIES:
-        raise NotImplementedError(f"model {model_name!r} is not ported; "
-                                  f"have {sorted(FAMILIES)}")
-    spec_cls, builder = FAMILIES[key]
-    fields = dict(spec_fields or {})
-    if "n_per_l" in fields:
-        fields["n_per_l"] = tuple(fields["n_per_l"])
-    spec = spec_cls(**fields)
-    fn, layout = builder(spec)
-    return spec, fn, layout
+    """(spec, model_fn, layout) of any registry name (models/registry.py)
+    from the reference's model name and its spec's fields
+    (dataclasses.asdict of the reference spec, window_hint included; None
+    for the family's default spec)."""
+    fields = {k: (tuple(v) if isinstance(v, list) else v)
+              for k, v in (spec_fields or {}).items()}
+    fn, layout = registry.build_model(model_name, **fields)
+    return fn._family_spec, fn, layout
 
 
 def problem_from_arrays(model_name, nu, spec, params0, kinds, hypers, names,

@@ -7,6 +7,7 @@ tamcmc_tpu/demos.py make_demo):
   kepler_full             config 4: 14 orders of l = 0..3, 10 temperatures
   subgiant_mixed          config 5: dense l = 1 mixed modes (ARMM solver)
   subgiant_mixed_inertia  config 5 with the mode-inertia height switch
+  ajfit                   a-coefficient table fit (no spectrum, no kernel)
 
 The data are generated from the model itself (chi^2 2-d.o.f. multiplicative
 noise for raw periodograms, Gaussian noise for the smoothed spectrum), so
@@ -25,6 +26,7 @@ import math
 import numpy as np
 import torch
 
+from tamcmc_tpu_torch.models.ajfit import AjFitSpec, build_ajfit
 from tamcmc_tpu_torch.models.asymptotic import RGBAsymptSpec, build_rgb_asympt
 from tamcmc_tpu_torch.models.ms_global import MSGlobalSpec, build_ms_global
 from tamcmc_tpu_torch.models.test_models import (
@@ -42,6 +44,7 @@ MS_GLOBAL = "model_MS_Global_a1etaa3_HarveyLike"
 RGB_ASYMPT = "model_RGB_asympt_a1etaa3_HarveyLike"
 SINGLE_LORENTZIAN = "model_Single_Lorentzian"
 HARVEY_BACKGROUND = "model_Harvey_Background"
+AJFIT = "model_ajfit"
 
 
 def _f32(a, device):
@@ -296,6 +299,51 @@ def _subgiant_mixed(name, seed, ngrid, n_orders, device, gen):
         "n_p_poles": n_p, "n_g_poles": n_g, "height_kind": height_kind})
 
 
+def _ajfit(seed, ngrid, n_orders, device, gen):
+    """a-coefficient table fit (io_ajfit [U]): 3 l=1 + 3 l=2 multiplets
+    around numax, truth aj plus a gate-filter activity band; the data are
+    nu_nlm with Gaussian noise, chi_square likelihood over the table."""
+    ls = (1, 1, 1, 2, 2, 2)
+    spec_obj = AjFitSpec(l_per_multiplet=ls)
+    fn, layout = build_ajfit(spec_obj)
+    rng = np.random.default_rng(seed)
+    dnu = 100.0
+    nu_nl = 2200.0 + dnu * np.arange(6) + rng.normal(0, 0.3, 6)
+    nu_nl[3:] -= 0.12 * dnu + 250.0          # l=2 ridge offset
+    nu_nl.sort()
+    truth = np.zeros(layout.ndim)
+    truth[layout.offset("nu_nl"):layout.offset("nu_nl") + 6] = nu_nl
+    ao = layout.offset("aj")
+    truth[ao:ao + 6] = [0.40, 0.030, 0.015, 0.004, 0.002, 0.001]
+    aco = layout.offset("activity")
+    truth[aco:aco + 3] = [5e-4, np.deg2rad(20.0), np.deg2rad(15.0)]
+    n_pts = spec_obj.n_points
+    sigma = _f32(np.full(n_pts, 0.03), device)
+    nu_idx = torch.arange(n_pts, dtype=torch.float32, device=device)
+    model = _model(fn, truth, nu_idx)
+    spec = model + sigma * torch.randn(model.shape, generator=gen,
+                                       device=device)
+    rows = [(f"nu_{i}", "gaussian", float(nu_nl[i]), 0.5) for i in range(6)]
+    rows += [("a1", "uniform", 0.0, 2.0),
+             ("a2", "gaussian", 0.0, 0.2),
+             ("a3", "gaussian", 0.0, 0.2),
+             ("a4", "gaussian", 0.0, 0.05),
+             ("a5", "gaussian", 0.0, 0.05),
+             ("a6", "gaussian", 0.0, 0.05),
+             ("epsilon", "uniform", 0.0, 5e-3),
+             ("theta0", "uniform", 0.0, np.pi / 2),
+             ("delta", "uniform", np.deg2rad(2.0), np.deg2rad(45.0))]
+    priors = PriorTable.from_rows(rows)
+    p0 = truth.copy()
+    p0[6:12] = [0.3, 0.0, 0.0, 0.0, 0.0, 0.0]
+    p0[12:15] = [1e-3, np.deg2rad(30.0), np.deg2rad(10.0)]
+    problem = _problem(AJFIT, fn, layout, priors, nu_idx, spec, p0, spec_obj,
+                       likelihood="chi_square", sigma_spec=sigma)
+    return (problem, MALAHyper(use_drift=True, dN_mixing=10, lambda_temp=1.6),
+            PhasePlan(burnin=1500, learning=5000, acquire=8000, thin=4),
+            _meta(truth, 4, 8, AJFIT, {"l_per_multiplet": ls}))
+
+
 DEMOS = {
     "single_lorentzian": _single_lorentzian,
     "harvey_background": _harvey_background,
@@ -304,6 +352,7 @@ DEMOS = {
     "subgiant_mixed": lambda *a: _subgiant_mixed("subgiant_mixed", *a),
     "subgiant_mixed_inertia":
         lambda *a: _subgiant_mixed("subgiant_mixed_inertia", *a),
+    "ajfit": _ajfit,
 }
 
 
@@ -314,9 +363,6 @@ def make_demo(name: str, seed: int = 0, ngrid: int = None,
     ngrid/n_orders scale the MS_Global and subgiant demos down (tests); the
     defaults are the production-scale configs."""
     name = name.lower()
-    if name == "ajfit":
-        raise NotImplementedError("the ajfit demo waits for models/ajfit.py "
-                                  "and ops/alm.py, not ported yet")
     if name not in DEMOS:
         raise KeyError(f"unknown demo {name!r}; have {', '.join(DEMOS)}")
     gen = torch.Generator(device=device).manual_seed(seed)

@@ -1,1 +1,2 @@
-"""Sample writers (.bin/.hdr, byte-compatible with tamcmc_tpu)."""
+"""Host-side IO: spectrum data, problem files and their validation, and
+the sampler's outputs."""

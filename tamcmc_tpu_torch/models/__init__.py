@@ -1,1 +1,4 @@
-"""Spectrum model families (MS_Global a1etaa3)."""
+"""Model families and the registry of their reference names."""
+
+from tamcmc_tpu_torch.models.registry import (  # noqa: F401
+    build_model, list_models)

@@ -98,7 +98,8 @@ def _ridge_fit(f0):
 
 def build_rgb_asympt(spec: RGBAsymptSpec):
     """Return (model_fn, layout); model_fn carries `_assemble` (params ->
-    (H, C, W, B, noise), components ordered l=0, l=2, l=1)."""
+    (H, C, W, B, noise), components ordered l=0, l=2, l=1) and `_background`
+    (noise block -> background on a grid)."""
     if spec.height_kind not in ("equipartition", "inertia"):
         raise ValueError(f"unknown height_kind {spec.height_kind!r}")
     if spec.width_kind not in ("free", "app2016"):
@@ -164,11 +165,18 @@ def build_rgb_asympt(spec: RGBAsymptSpec):
         B = asym[..., None].expand(H.shape)
         return H, C, W, B, noise
 
+    def background(nu, noise, const=None):
+        """The background of a noise block on the bins `nu`; const: as
+        ops/noise.py noise_background's."""
+        return noise_background(nu, noise, n_harvey=spec.n_harvey,
+                                kind=spec.noise_kind, const=const)
+
     def model_fn(params, nu, fixed=None):
         H, C, W, B, noise = assemble(params)
-        return sum_lorentzians(nu, H, C, W, B) + noise_background(
-            nu, noise, n_harvey=spec.n_harvey, kind=spec.noise_kind,
-            const=fixed_noise(layout, fixed))
+        return sum_lorentzians(nu, H, C, W, B) + background(
+            nu, noise, fixed_noise(layout, fixed))
 
+    model_fn._spec = spec
     model_fn._assemble = assemble
+    model_fn._background = background
     return model_fn, layout

@@ -4,8 +4,10 @@ tamcmc_tpu/models/common.py; reference `io_ms_global.cpp`/`models.cpp` [U]).
 Heights and widths are free parameters at the l=0 frequencies; l>0 modes
 take them interpolated linearly in frequency (heights scaled by the sampled
 visibility V^2_l), and the 2l+1 azimuthal components are weighted by the
-inclination visibilities and split by the rotation law.  Everything is
-batched over leading dims: (..., n) blocks -> (..., ncomp) components.
+inclination visibilities and split by the rotation law: a1-eta-a3 with a
+shared or per-degree/per-order a1, the a-coefficients a1..a6, or the odd
+a-coefficients with the Alm activity shifts.  Everything is batched over
+leading dims: (..., n) blocks -> (..., ncomp) components.
 """
 
 from __future__ import annotations
@@ -13,7 +15,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tamcmc_tpu_torch.ops.rotation import split_frequencies_a1etaa3
+from tamcmc_tpu_torch.ops.alm import alm_shifts, alm_table
+from tamcmc_tpu_torch.ops.rotation import (
+    centrifugal_shift_aj, split_frequencies_a1etaa3, split_frequencies_aj)
 from tamcmc_tpu_torch.ops.visibilities import mode_visibility
 
 # np.spacing(np.finfo(f32).eps): below this a knot spacing counts as zero
@@ -43,14 +47,15 @@ def interp_monotonic(x, xp, fp):
     return torch.where(x > xp_b[..., -1:], fp_b[..., -1:], f)
 
 
-def assemble_components_a1x(freqs_per_l, heights_l0, widths_l0,
-                            visibilities, inc_rad, a1_per_l, eta0, a3, asym):
-    """Flat component arrays (H, C, W, B), each (..., ncomp), under the
-    a1-eta-a3 splitting with a per-degree a1 table.
+def _assemble_components(freqs_per_l, heights_l0, widths_l0, visibilities,
+                         inc_rad, asym, centres):
+    """Flat component arrays (H, C, W, B), each (..., ncomp), for any
+    splitting law: `centres(l, fl)` gives degree l's component frequencies
+    (..., N_l, 2l+1) from its frequency block fl (..., N_l).
 
-    freqs_per_l: list indexed by l of (..., N_l) frequency blocks;
-    visibilities: (..., lmax) V^2 for l=1..lmax; a1_per_l: list indexed by l
-    of a1 broadcastable to (..., N_l); inc_rad, eta0, a3, asym: (...,)."""
+    freqs_per_l: list indexed by l of (..., N_l) frequency blocks (empty
+    ones are skipped); visibilities: (..., lmax) V^2 for l=1..lmax; inc_rad,
+    asym: (...,)."""
     f0 = freqs_per_l[0]
     hs, cs, ws, bs = [], [], [], []
     for l, fl in enumerate(freqs_per_l):
@@ -63,7 +68,7 @@ def assemble_components_a1x(freqs_per_l, heights_l0, widths_l0,
                 * visibilities[..., l - 1:l]
             w_l = interp_monotonic(fl, f0, widths_l0)
         eps = mode_visibility(l, inc_rad)                     # (..., 2l+1)
-        nus = split_frequencies_a1etaa3(l, fl, a1_per_l[l], eta0, a3)
+        nus = centres(l, fl)
         H = h_l[..., :, None] * eps[..., None, :]
         W = w_l[..., :, None].expand(nus.shape)
         B = asym[..., None, None].expand(nus.shape)
@@ -71,6 +76,17 @@ def assemble_components_a1x(freqs_per_l, heights_l0, widths_l0,
             acc.append(t.reshape(t.shape[:-2] + (-1,)))
     return (torch.cat(hs, -1), torch.cat(cs, -1),
             torch.cat(ws, -1), torch.cat(bs, -1))
+
+
+def assemble_components_a1x(freqs_per_l, heights_l0, widths_l0,
+                            visibilities, inc_rad, a1_per_l, eta0, a3, asym):
+    """The a1-eta-a3 splitting with a per-degree a1 table: a1_per_l is a
+    list indexed by l of a1 broadcastable to (..., N_l), a (..., 1) shared
+    splitting (a1etaa3, a1l) or (..., N_l) per order (a1n, a1nl); eta0, a3:
+    (...,)."""
+    return _assemble_components(
+        freqs_per_l, heights_l0, widths_l0, visibilities, inc_rad, asym,
+        lambda l, fl: split_frequencies_a1etaa3(l, fl, a1_per_l[l], eta0, a3))
 
 
 def assemble_components_a1etaa3(freqs_per_l, heights_l0, widths_l0,
@@ -81,6 +97,41 @@ def assemble_components_a1etaa3(freqs_per_l, heights_l0, widths_l0,
                                    visibilities, inc_rad,
                                    [a1[..., None]] * len(freqs_per_l),
                                    eta0, a3, asym)
+
+
+def assemble_components_aj(freqs_per_l, heights_l0, widths_l0,
+                           visibilities, inc_rad, aj, eta0, asym):
+    """The general a-coefficient law, aj (..., 6) = a1..a6 per walker, with
+    the centrifugal eta0 term (reference `model_MS_Global_aj_*` [U])."""
+    a1 = aj[..., 0]
+    return _assemble_components(
+        freqs_per_l, heights_l0, widths_l0, visibilities, inc_rad, asym,
+        lambda l, fl: centrifugal_shift_aj(
+            l, split_frequencies_aj(l, fl, aj), eta0, a1))
+
+
+def assemble_components_ajAlm(freqs_per_l, heights_l0, widths_l0,
+                              visibilities, inc_rad, a1, a3, a5, eta0,
+                              epsilon, theta0, delta, asym,
+                              filter_kind: str = "gate"):
+    """Odd a-coefficients (a1, a3, a5), the centrifugal eta0 term and the
+    Alm activity shifts on l > 0 (reference `model_MS_Global_ajAlm_*` [U]):
+    the even asphericity comes from the activity model, not from fitted
+    a2/a4/a6.  The activity filter is evaluated once for all degrees."""
+    zero = torch.zeros_like(a1)
+    aj = torch.stack([a1, zero, a3, zero, a5, zero], -1)
+    table = alm_table(theta0, delta, filter_kind)
+
+    def centres(l, fl):
+        nus = centrifugal_shift_aj(l, split_frequencies_aj(l, fl, aj), eta0,
+                                   a1)
+        if l > 0:
+            nus = nus + alm_shifts(l, fl, epsilon, theta0, delta,
+                                   kind=filter_kind, table=table)
+        return nus
+
+    return _assemble_components(freqs_per_l, heights_l0, widths_l0,
+                                visibilities, inc_rad, asym, centres)
 
 
 def fixed_noise(layout, fixed):

@@ -1,10 +1,10 @@
-"""MS Global model family, a1etaa3 rotation (port of
-tamcmc_tpu/models/ms_global.py; reference `model_MS_Global_a1etaa3_HarveyLike`
-[U]).
+"""MS Global model family, the "peak bagging" models (port of
+tamcmc_tpu/models/ms_global.py; reference `model_MS_Global_*` [U]).
 
 Block ABI (BlockLayout, the reference's plength order):
-  heights (N0,), visibilities (lmax,), freq_l0..freq_l3, rot [a1, eta0_switch,
-  a3, asym], widths (N0,), noise (3*nh+1,), inclination (1,) [rad], trunc (1,).
+  heights (N0,), visibilities (lmax,), freq_l0..freq_l3, rot (by rotation
+  law, see MSGlobalSpec.rot_size), widths (N0,) or the 6 parameters of the
+  width relation, noise (3*nh+1,), inclination (1,) [rad], trunc (1,).
 
 `model_fn(params (..., D), nu (N,), fixed=None) -> (..., N)` is batched over
 leading dims; `fixed` is the Problem's (params0, fixed mask) hand-off
@@ -25,7 +25,9 @@ import numpy as np
 import torch
 
 from tamcmc_tpu_torch.models.common import (
-    assemble_components_a1etaa3, dnu_from_freqs, fixed_noise)
+    assemble_components_a1etaa3, assemble_components_a1x,
+    assemble_components_aj, assemble_components_ajAlm, dnu_from_freqs,
+    fixed_noise)
 from tamcmc_tpu_torch.ops.lorentzian import (
     make_static_window_groups, partition_window_groups, segment_values,
     sum_lorentzians, sum_lorentzians_segments)
@@ -38,13 +40,11 @@ from tamcmc_tpu_torch.utils.constants import DNU_SUN, G_CGS, RHO_SUN
 
 @dataclasses.dataclass(frozen=True)
 class MSGlobalSpec:
-    """Static structure of an MS-Global problem (fixes all shapes).  Same
-    fields as the reference's spec; this port builds the a1etaa3 rotation
-    and refuses the other laws."""
+    """Static structure of an MS-Global problem (fixes all shapes)."""
     n_per_l: tuple          # mode counts for l=0..3, e.g. (6, 6, 6, 0)
     n_harvey: int = 3
-    rotation: str = "a1etaa3"
-    alm_filter: str = "gate"
+    rotation: str = "a1etaa3"   # a1etaa3 | a1a2a3 | a1l | a1n | a1nl | aj | ajAlm
+    alm_filter: str = "gate"    # ajAlm's activity filter (ops/alm.py)
     noise_kind: str = "harvey_like"   # or "harvey_1985"
     width_kind: str = "free"          # or "app2016" (6-parameter relation)
     window_hint: tuple = None   # (params0_tuple, nu_start, nu_step, n_bins,
@@ -55,6 +55,14 @@ class MSGlobalSpec:
         return max(l for l, n in enumerate(self.n_per_l) if n > 0 or l == 0)
 
     def rot_size(self) -> int:
+        # the rot block per rotation law:
+        #  a1etaa3 [a1, eta_sw, a3, asym]
+        #  a1a2a3  [a1, a2, a3, asym]   (a2 fitted directly, no eta term)
+        #  a1l     [a1_l1, a1_l2, eta_sw, a3, asym]   (l=3 takes the mean)
+        #  a1n     [a1_0..a1_{N0-1}, eta_sw, a3, asym]
+        #  a1nl    [a1l1_0.., a1l2_0.., eta_sw, a3, asym]
+        #  aj      [a1..a6, eta_sw, asym]
+        #  ajAlm   [a1, a3, a5, eta_sw, epsilon, theta0, delta, asym]
         n0 = self.n_per_l[0]
         return {"a1etaa3": 4, "a1a2a3": 4, "a1l": 5, "a1n": n0 + 3,
                 "a1nl": 2 * n0 + 3, "aj": 8, "ajAlm": 8}[self.rotation]
@@ -74,6 +82,9 @@ class MSGlobalSpec:
                  ("inclination", 1),
                  ("trunc", 1)]
         return BlockLayout.make(spec)
+
+
+ROTATIONS = ("a1etaa3", "a1a2a3", "a1l", "a1n", "a1nl", "aj", "ajAlm")
 
 
 def _eta0_ingraph(f0, switch):
@@ -111,15 +122,18 @@ def build_ms_global(spec: MSGlobalSpec):
     """Return (model_fn, layout): model_fn(params (..., D), nu) -> (..., N).
 
     model_fn carries `_assemble` (params -> component arrays and noise
-    block) and, with spec.window_hint, `_window_groups` (the disjoint
+    block), `_background` (noise block -> background on a grid), `_spec`
+    and, with spec.window_hint, `_window_groups` (the disjoint
     segments), `_plan` (their kernel plan, built once here) and the
     `_segments_and_bg` hook of the piece-wise likelihood."""
-    if spec.rotation != "a1etaa3":
-        raise NotImplementedError(f"rotation={spec.rotation!r}: only the "
-                                  "a1etaa3 law is ported")
+    if spec.rotation not in ROTATIONS:
+        raise ValueError(f"unknown rotation {spec.rotation!r}; have "
+                         f"{', '.join(ROTATIONS)}")
     if spec.width_kind not in ("free", "app2016"):
         raise ValueError(f"unknown width_kind {spec.width_kind!r}")
     layout = spec.layout()
+    n_per_l = tuple(spec.n_per_l) + (0,) * (4 - len(spec.n_per_l))
+    n0 = n_per_l[0]
 
     def assemble(params):
         heights = layout.get(params, "heights")
@@ -135,10 +149,49 @@ def build_ms_global(spec: MSGlobalSpec):
         rot = layout.get(params, "rot")
         noise = layout.get(params, "noise")
         inc = layout.get(params, "inclination")[..., 0]
-        a1, sw, a3, asym = rot[..., 0], rot[..., 1], rot[..., 2], rot[..., 3]
-        eta0 = _eta0_ingraph(freqs_per_l[0], sw)
-        H, C, W, B = assemble_components_a1etaa3(
-            freqs_per_l, heights, widths, vis, inc, a1, eta0, a3, asym)
+        common = (freqs_per_l, heights, widths, vis, inc)
+        if spec.rotation == "a1etaa3":
+            a1, sw, a3, asym = (rot[..., i] for i in range(4))
+            eta0 = _eta0_ingraph(freqs_per_l[0], sw)
+            H, C, W, B = assemble_components_a1etaa3(*common, a1, eta0, a3,
+                                                     asym)
+        elif spec.rotation == "a1a2a3":
+            # nu_nlm = nu + a1 P1(m) + a2 P2(m) + a3 P3(m), no eta term
+            a1, a2, a3, asym = (rot[..., i] for i in range(4))
+            zero = torch.zeros_like(a1)
+            aj6 = torch.stack([a1, a2, a3, zero, zero, zero], -1)
+            H, C, W, B = assemble_components_aj(*common, aj6, zero, asym)
+        elif spec.rotation in ("a1l", "a1n", "a1nl"):
+            if spec.rotation == "a1l":
+                a1_1, a1_2 = rot[..., 0:1], rot[..., 1:2]
+                sw, a3, asym = rot[..., 2], rot[..., 3], rot[..., 4]
+                # l=0 has no splitting; l=3 takes the mean of l=1 and 2 [U]
+                a1_per_l = [a1_1, a1_1, a1_2, 0.5 * (a1_1 + a1_2)]
+            elif spec.rotation == "a1n":
+                a1n = rot[..., 0:n0]
+                sw, a3, asym = (rot[..., n0 + i] for i in range(3))
+                a1_per_l = [a1n[..., :n_per_l[l]] for l in range(4)]
+            else:           # a1nl: per-order tables for l=1 and for l=2
+                a1n1, a1n2 = rot[..., 0:n0], rot[..., n0:2 * n0]
+                sw, a3, asym = (rot[..., 2 * n0 + i] for i in range(3))
+                a1m = 0.5 * (a1n1 + a1n2)
+                a1_per_l = [a1n1[..., :n_per_l[0]], a1n1[..., :n_per_l[1]],
+                            a1n2[..., :n_per_l[2]], a1m[..., :n_per_l[3]]]
+            eta0 = _eta0_ingraph(freqs_per_l[0], sw)
+            H, C, W, B = assemble_components_a1x(*common, a1_per_l, eta0, a3,
+                                                 asym)
+        elif spec.rotation == "ajAlm":
+            a1, a3, a5, sw, epsilon, theta0, delta, asym = (
+                rot[..., i] for i in range(8))
+            eta0 = _eta0_ingraph(freqs_per_l[0], sw)
+            H, C, W, B = assemble_components_ajAlm(
+                *common, a1, a3, a5, eta0, epsilon, theta0, delta, asym,
+                filter_kind=spec.alm_filter)
+        else:               # aj
+            aj = rot[..., 0:6]
+            sw, asym = rot[..., 6], rot[..., 7]
+            eta0 = _eta0_ingraph(freqs_per_l[0], sw)
+            H, C, W, B = assemble_components_aj(*common, aj, eta0, asym)
         return H, C, W, B, noise
 
     groups = plan = None
@@ -147,17 +200,23 @@ def build_ms_global(spec: MSGlobalSpec):
         ncomp = sum(n * (2 * l + 1) for l, n in enumerate(spec.n_per_l))
         plan = segment_plan(groups, ncomp, int(spec.window_hint[3]))
 
+    def background(nu, noise, const=None):
+        """The background of a noise block on the bins `nu`; const: as
+        ops/noise.py noise_background's."""
+        return noise_background(nu, noise, n_harvey=spec.n_harvey,
+                                kind=spec.noise_kind, const=const)
+
     def model_fn(params, nu, fixed=None):
         H, C, W, B, noise = assemble(params)
         if groups is not None:
             modes = sum_lorentzians_segments(nu, H, C, W, B, groups, plan)
         else:
             modes = sum_lorentzians(nu, H, C, W, B)
-        return modes + noise_background(nu, noise, n_harvey=spec.n_harvey,
-                                        kind=spec.noise_kind,
-                                        const=fixed_noise(layout, fixed))
+        return modes + background(nu, noise, fixed_noise(layout, fixed))
 
     model_fn._assemble = assemble      # params -> (H, C, W, B, noise)
+    model_fn._background = background  # (nu, noise, const) -> background
+    model_fn._spec = spec              # the spec this model was built from
     model_fn._window_groups = groups
     model_fn._plan = plan
     if groups is not None:
@@ -172,9 +231,7 @@ def build_ms_global(spec: MSGlobalSpec):
             const = fixed_noise(layout, fixed) if groups else None
 
             def bg_fn(lo, hi):
-                return noise_background(nu[lo:hi], noise,
-                                        n_harvey=spec.n_harvey,
-                                        kind=spec.noise_kind, const=const)
+                return background(nu[lo:hi], noise, const)
 
             return segment_values(nu, H, C, W, B, groups, plan), bg_fn
 

@@ -1,10 +1,14 @@
-"""Rotational splitting of (l, m) mode frequencies, a1etaa3 law (port of
-tamcmc_tpu/ops/rotation.py; reference `function_rot.cpp` [U]):
+"""Rotational splitting of (l, m) mode frequencies (port of
+tamcmc_tpu/ops/rotation.py; reference `function_rot.cpp` [U]).  Two laws:
 
-  nu_nlm = nu_nl + m a1 + eta0 (a1 Hz)^2 nu_nl Q_lm + a3 P3(m)
+  a1etaa3:  nu_nlm = nu_nl + m a1 + eta0 (a1 Hz)^2 nu_nl Q_lm + a3 P3(m)
+  aj:       nu_nlm = nu_nl + sum_{j=1..6} a_j P_j(m)
+            (+ eta0 (a1 Hz)^2 nu_nlm Q_lm when the model's eta switch is on)
 
-with Q_lm = (l(l+1) - 3m^2)/((2l-1)(2l+3)) and P3 the Ritzwoller & Lavely
-(1991) polynomial normalised so P_j(l) = l (host-side numpy, static per l).
+with Q_lm = (l(l+1) - 3m^2)/((2l-1)(2l+3)) and P_j the Ritzwoller & Lavely
+(1991) polynomials normalised so P_j(l) = l (host-side numpy, static per l).
+Everything is batched over leading dims: per-walker scalars are (...,),
+frequency blocks (..., N_l), results (..., N_l, 2l+1).
 """
 
 import functools
@@ -67,3 +71,31 @@ def split_frequencies_a1etaa3(l: int, nu_nl, a1, eta0, a3):
     eta0 = eta0[..., None, None]
     a3 = a3[..., None, None]
     return nu + m * a1b + eta0 * (a1b * 1e-6) ** 2 * nu * q + a3 * p3
+
+
+@functools.lru_cache(maxsize=64)
+def _aj_consts(l: int, dtype, device):
+    """(P_1..P_6 (6, 2l+1), Q_lm (2l+1,)) as float32 values on `device`."""
+    return tuple(torch.as_tensor(np.asarray(a, dtype=np.float32)).to(
+        device=device, dtype=dtype) for a in (rl_polynomials(l, 6), qlm(l)))
+
+
+def split_frequencies_aj(l: int, nu_nl, aj_coeffs):
+    """General a-coefficient splitting nu + sum_j a_j P_j(m) [uHz].
+
+    nu_nl: (..., N_l); aj_coeffs: (..., 6), a1..a6 per walker (entries with
+    j > 2l meet a zero polynomial row).  Returns (..., N_l, 2l+1)."""
+    polys, _ = _aj_consts(l, nu_nl.dtype, nu_nl.device)
+    # six terms per m: a product and a sum, no matrix-multiply library call
+    shift = (aj_coeffs[..., :, None] * polys).sum(-2)         # (..., 2l+1)
+    return nu_nl[..., None] + shift[..., None, :]
+
+
+def centrifugal_shift_aj(l: int, nu_nlm, eta0, a1):
+    """The aj family's centrifugal term: nu + eta0 (a1 Hz)^2 nu Q_lm.
+
+    nu_nlm: (..., N_l, 2l+1); eta0 [s^2] and a1 [uHz]: (...,)."""
+    _, q = _aj_consts(l, nu_nlm.dtype, nu_nlm.device)
+    eta0 = eta0[..., None, None]
+    a1 = a1[..., None, None]
+    return nu_nlm + eta0 * (a1 * 1e-6) ** 2 * nu_nlm * q

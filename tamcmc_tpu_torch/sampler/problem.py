@@ -147,7 +147,10 @@ class Problem:
             gradL, = torch.autograd.grad(logL.sum(), xl)
             xp = x.detach().requires_grad_(True)
             logP = self._logP_from_full(self.embed(xp))
-            gradP, = torch.autograd.grad(logP.sum(), xp)
+            # uniform and fixed rows alone make a prior that is constant on
+            # its support: no graph reaches x, and the gradient is zero
+            gradP = (torch.autograd.grad(logP.sum(), xp)[0]
+                     if logP.requires_grad else torch.zeros_like(xp))
         return (logL.detach(), logP.detach()), (gradL, gradP)
 
     # the reference's vmap-ed forms; the methods above already batch over

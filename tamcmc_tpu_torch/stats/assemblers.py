@@ -1,6 +1,6 @@
 """Family prior assemblers: cross-parameter constraints (port of
-tamcmc_tpu/stats/assemblers.py, MS_Global and RGB asymptotic families;
-reference `priors_calc.cpp` `priors_MS_Global`, `priors_asymptotic` [U]).
+tamcmc_tpu/stats/assemblers.py; reference `priors_calc.cpp`
+`priors_MS_Global`, `priors_local`, `priors_asymptotic` [U]).
 
 Each constraint is fn(full_params (..., D)) -> (...,): 0 when satisfied and
 NEG_BIG per violation, so a violating proposal is rejected with
@@ -100,17 +100,43 @@ def _rgb_constraints(layout: BlockLayout):
     return cons
 
 
+def _local_constraints(layout: BlockLayout):
+    """Non-negative per-mode heights and widths (every `height_l*` and
+    `width_l*` block of the layout), inclination in [0, pi/2] where the
+    layout has one.  The windows of a local fit do not overlap, so the
+    frequencies carry no ordering term."""
+    cons = [bounded(layout, b, lo=0.0) for b in layout.names
+            if b.startswith(("height_l", "width_l"))]
+    if "inclination" in layout.names:
+        cons.append(bounded(layout, "inclination", lo=0.0, hi=math.pi / 2))
+    return cons
+
+
+def _ajfit_constraints(layout: BlockLayout):
+    """Ordered nuisance centroids (the fitted multiplets are a
+    frequency-sorted table) and a physical activity block: epsilon >= 0,
+    theta0 in [0, pi/2] (a latitude), delta >= 1e-3."""
+    cons = [ordering(layout, "nu_nl")]
+    if "activity" in layout.names:
+        cons.append(bounded(layout, "activity", lo=0.0, index=0))
+        cons.append(bounded(layout, "activity", lo=0.0, hi=math.pi / 2,
+                            index=1))
+        cons.append(bounded(layout, "activity", lo=1e-3, index=2))
+    return cons
+
+
 def build_family_constraints(model_name: str,
                              layout: BlockLayout) -> Optional[Callable]:
     """Model name -> composed extra_logp, matched on the family prefix;
     None for the test and background families (per-parameter priors
-    suffice).  The MS_local and ajfit families are not ported and raise."""
+    suffice)."""
     name = model_name.strip().lower()
     if name.startswith("model_ms_global"):
         return compose(*_ms_global_constraints(layout))
+    if name.startswith("model_ms_local"):
+        return compose(*_local_constraints(layout))
     if name.startswith("model_rgb_asympt"):
         return compose(*_rgb_constraints(layout))
-    if name.startswith(("model_ms_local", "model_ajfit")):
-        raise NotImplementedError(f"family constraints for {model_name!r} "
-                                  "are not ported")
+    if name.startswith("model_ajfit"):
+        return compose(*_ajfit_constraints(layout))
     return None

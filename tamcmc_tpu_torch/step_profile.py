@@ -1,15 +1,19 @@
-"""Per-layer time of one tempered MALA step of a demo on a GPU.
+"""Per-layer time of one tempered MALA step of a demo or a problem file on a
+GPU.
 
-    python -m tamcmc_tpu_torch.step_profile [--demo ms_global] [--temps T]
-        [--chains 128] [--steps 100] [--reps 30]
+    python -m tamcmc_tpu_torch.step_profile [--demo ms_global | --problem
+        FILE] [--temps T] [--chains 128] [--steps 100] [--reps 30]
         [--out chiprun_out/step_profile.json]
 
-T defaults to the demo's own (6 for ms_global, 10 for kepler_full, 8 for
-subgiant_mixed).  Each piece of the step (assembly, background, the
-Lorentzian kernels: segment mode for the windowed MS_Global demos, dense
-mode otherwise, the likelihood given the modes, one backward, prior, the
-full step, the swap sweep) is run on the same state, after warm-up, and
-timed twice:
+The problem is built by the CLI's own `cli._build_problem`, so a
+FILE is read exactly as `run --problem FILE` reads it; it must name a
+spectrum model of the MS_Global, RGB asymptotic or MS_local family.  T
+defaults to the demo's or the file's own (6 for ms_global, 10 for
+kepler_full, 8 for subgiant_mixed).  Each piece of the step (assembly,
+background, the Lorentzian kernels: segment mode for a model with window
+segments, dense mode otherwise, the likelihood given the modes, one
+backward, prior, the full step, the swap sweep) is run on the same state,
+after warm-up, and timed twice:
   host_ms    synchronised wall time per call, averaged over `--reps` calls;
   device_ms  busy device time per call from torch.profiler: the union of
              the kernels', copies' and fills' intervals, over `--reps` calls;
@@ -91,7 +95,8 @@ def _device_ms(fn, reps, dev):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--demo", default="ms_global")
+    ap.add_argument("--demo", help="built-in demo (default ms_global)")
+    ap.add_argument("--problem", help="problem file, as `run --problem`")
     ap.add_argument("--temps", type=int,
                     help="temperatures (default: the demo's)")
     ap.add_argument("--chains", type=int, default=128)
@@ -104,10 +109,9 @@ def main(argv=None):
     if not torch.cuda.is_available():
         raise SystemExit("step_profile needs a CUDA device")
 
-    from tamcmc_tpu_torch.demos import make_demo
+    from tamcmc_tpu_torch.cli import _build_problem
     from tamcmc_tpu_torch.models.common import fixed_noise
     from tamcmc_tpu_torch.ops.lorentzian import segment_values, sum_lorentzians
-    from tamcmc_tpu_torch.ops.noise import noise_background
     from tamcmc_tpu_torch.sampler.driver import raw_step
     from tamcmc_tpu_torch.sampler.mala import init_state, mala_step
     from tamcmc_tpu_torch.sampler.tempering import (make_beta_ladder,
@@ -120,10 +124,17 @@ def main(argv=None):
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True
     ).stdout.strip().splitlines()[0]
-    problem, hp, _, meta = make_demo(args.demo, seed=args.seed, device=dev)
+    if not args.problem:
+        args.demo = args.demo or "ms_global"
+    elif args.demo:
+        raise SystemExit("give --demo or --problem, not both")
+    what = args.problem or args.demo
+    problem, hp, _, meta = _build_problem(args, dev)
     args.temps = args.temps or meta["n_temps"]
     fn, layout = problem.model_fn, problem.layout
-    spec = problem.model_meta["spec"]
+    if not hasattr(fn, "_assemble"):
+        raise SystemExit(f"{what}: step_profile needs a spectrum model of "
+                         "the MS_Global, RGB asymptotic or MS_local family")
     segments = getattr(fn, "_window_groups", None) is not None
     betas = make_beta_ladder(args.temps, hp.lambda_temp, device=dev)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
@@ -152,8 +163,7 @@ def main(argv=None):
         return sum_lorentzians(nu, H, C, W, B)
 
     def bg(c):
-        return noise_background(nu, noise, n_harvey=spec.n_harvey,
-                                kind=spec.noise_kind, const=c)
+        return fn._background(nu, noise, c)
 
     def likelihood_given(modes):
         """The likelihood from the modes, background (fixed terms once)
@@ -237,7 +247,7 @@ def main(argv=None):
     step_dev = next(r["device_ms"] for r in rows
                     if r["layer"] == "mala_step adaptive")
 
-    print(f"{args.demo}: T={args.temps} C={args.chains} N={nu.shape[0]}  "
+    print(f"{what}: T={args.temps} C={args.chains} N={nu.shape[0]}  "
           f"[{smi}]")
     print(f"{'layer':40s} {'host ms':>9s} {'device ms':>10s} {'launches':>9s}"
           f" {'span ms':>9s}")
@@ -258,6 +268,7 @@ def main(argv=None):
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps({
         "device": smi, "torch": torch.__version__, "demo": args.demo,
+        "problem": args.problem, "model": problem.model_meta["name"],
         "temps": args.temps,
         "chains": args.chains, "n_bins": int(nu.shape[0]), "layers": rows,
         "step_host_ms": steps,

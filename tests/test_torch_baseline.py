@@ -97,7 +97,10 @@ def test_harvey_background_chi_square_matches_jax():
 
 
 def test_unported_and_unknown_demos_raise():
-    with pytest.raises(NotImplementedError, match="ajfit"):
-        t_make_demo("ajfit")
-    with pytest.raises(KeyError, match="kepler_full"):
+    """No demo of the reference is left unported: `ajfit`, the last one,
+    builds (its parity is in tests/test_torch_ajfit.py); an unknown name
+    raises and lists the demos there are."""
+    problem, _, _, meta = t_make_demo("ajfit")
+    assert meta["model"] == "model_ajfit" and problem.ndim_free == 15
+    with pytest.raises(KeyError, match="kepler_full.*ajfit"):
         t_make_demo("no_such_demo")
