@@ -1,4 +1,4 @@
-"""tamcmc_tpu_torch CLI: run / export / stats / compare / evidence /
+"""tamcmc_tpu_torch CLI: run / batch / export / stats / compare / evidence /
 make-example / validate / model-eval / list-models (port of the same verbs
 of tamcmc_tpu/cli.py, with their flags, output text and exit codes).
 
@@ -8,7 +8,10 @@ of tamcmc_tpu/cli.py, with their flags, output text and exit codes).
         [--lambda-temp L] [--dn-mixing K] [--no-drift] [--target-acc A]
         [--adapt-ladder] [--resume] [--ckpt-every N] [--report-every N]
         [--no-report] [--max-rows N] [--debug] [--profile]
-        [--precision f32] [--ngrid N] [--n-orders K]
+        [--precision f32|bf16|f64] [--ngrid N] [--n-orders K]
+    python -m tamcmc_tpu_torch.cli batch --presets TABLE [--config CFG]
+        [--errors CFG] [--resume] [--precision f32|bf16] [--stacked]
+        [--ckpt-every N] [--device cuda] [--no-report]
     python -m tamcmc_tpu_torch.cli export --outdir OUT [--phase A]
         [--thin K] [--range lo:hi] [--out FILE]
     python -m tamcmc_tpu_torch.cli stats --outdir OUT [--phase A]
@@ -37,7 +40,15 @@ run continues with the same command plus `--resume` and leaves the .bin
 files, the chains.npz arrays and betas.npy byte for byte as an
 uninterrupted run would; the checkpoint records precision, runner, device
 type, chunk, thin, adapt_ladder, temperatures and chains, and a resume that
-differs in one of them exits with an error that names it.  Every verb that
+differs in one of them exits with an error that names it.  `--precision
+bf16` runs the Lorentzian profile stream in bfloat16 (the kernels' bf16
+instantiation on a CUDA device); `--precision f64` runs the whole sampler in
+float64 on `--device cpu` and is refused on a CUDA device.  `batch` runs a
+presets table of stars (TOML `[[star]]` rows or a provisional
+config_presets.cfg, io/refconfig.py): one `run` per star into its outdir,
+or with `--stacked` every star in one sampler whose step leads with a star
+axis (sampler/ensemble.py), checkpointed to `stacked_restore.npz` beside the
+table.  Every verb that
 computes runs on `--device`, cuda unless the caller asks for the cpu;
 `export`, `stats`, `compare`, `evidence` and `validate` only read files, on
 the host.  `--ngrid` and `--n-orders` cut a demo to size and are refused
@@ -75,8 +86,10 @@ def _make_hyper(overrides: dict) -> MALAHyper:
 
 def _sampler_cli_overrides(args) -> dict:
     """The sampler flags given on the command line; they override a problem
-    file's [sampler] values and a demo's."""
-    out = {}
+    file's [sampler] values and a demo's.  A .cfg workflow's [MALA] block
+    arrives as args.sampler_overrides (io/refconfig.py) and sits below the
+    flags."""
+    out = dict(getattr(args, "sampler_overrides", None) or {})
     if getattr(args, "lambda_temp", None) is not None:
         out["lambda_temp"] = args.lambda_temp
     if getattr(args, "dn_mixing", None) is not None:
@@ -98,9 +111,16 @@ def _device(args) -> torch.device:
     return device
 
 
+def _profile_precision(args) -> str:
+    """The Lorentzian profile stream a run's models are built with: bf16
+    under `--precision bf16`, else f32 (f64 casts the data, not the
+    stream)."""
+    return "bf16" if getattr(args, "precision", "f32") == "bf16" else "f32"
+
+
 def _problem_from_file(args, device):
     """(problem, hp, plan, meta) of `--problem FILE`, everything on
-    `device`."""
+    `device`, the models built in the run's profile precision."""
     from tamcmc_tpu_torch.io.data import read_spectrum
     from tamcmc_tpu_torch.models import build_model
     from tamcmc_tpu_torch.sampler.problem import Problem
@@ -113,7 +133,9 @@ def _problem_from_file(args, device):
     else:
         from tamcmc_tpu_torch.io.problemfile import read_problem_file
         cfg = read_problem_file(args.problem)
-    fn, layout = build_model(cfg["model"], **cfg["spec_kwargs"])
+    precision = _profile_precision(args)
+    fn, layout = build_model(cfg["model"], precision=precision,
+                             **cfg["spec_kwargs"])
     data_path = cfg["data"]
     if not pathlib.Path(data_path).is_absolute():
         data_path = str(pathlib.Path(args.problem).parent / data_path)
@@ -127,7 +149,7 @@ def _problem_from_file(args, device):
                 float(np.median(np.diff(nu_np))), int(nu_np.shape[0]),
                 float(cfg.get("window_margin", 10.0)))
         fn, layout = build_model(cfg["model"], window_hint=hint,
-                                 **cfg["spec_kwargs"])
+                                 precision=precision, **cfg["spec_kwargs"])
 
     def f32(a):
         return torch.as_tensor(np.asarray(a, dtype=np.float32), device=device)
@@ -156,19 +178,20 @@ def _problem_from_file(args, device):
                       likelihood=cfg["likelihood"], sigma_spec=sigma,
                       mask=mask, extra_logp=extra,
                       model_meta={"name": cfg["model"],
-                                  "spec": getattr(fn, "_family_spec", None)})
+                                  "spec": getattr(fn, "_family_spec", None),
+                                  "precision": precision})
     sampler_cfg = dict(cfg.get("sampler", {}))
     sampler_cfg.update(_sampler_cli_overrides(args))
     hp = _make_hyper(sampler_cfg)
     ph = dict(cfg.get("phases", {}))
 
-    def arg(name):
-        return getattr(args, name, None)
+    def arg(name, default):
+        given = getattr(args, name, None)
+        return ph.get(name, default) if given is None else given
 
-    plan = PhasePlan(burnin=arg("burnin") or ph.get("burnin", 2000),
-                     learning=arg("learning") or ph.get("learning", 10000),
-                     acquire=arg("acquire") or ph.get("acquire", 20000),
-                     thin=arg("thin") or ph.get("thin", 10))
+    plan = PhasePlan(burnin=arg("burnin", 2000),
+                     learning=arg("learning", 10000),
+                     acquire=arg("acquire", 20000), thin=arg("thin", 10))
     return problem, hp, plan, {"n_temps": ph.get("temps") or 6,
                                "n_chains": ph.get("chains") or 4}
 
@@ -180,7 +203,8 @@ def _build_problem(args, device):
     if getattr(args, "demo", None):
         problem, hp, plan, meta = make_demo(
             args.demo, seed=args.seed, ngrid=getattr(args, "ngrid", None),
-            n_orders=getattr(args, "n_orders", None), device=device)
+            n_orders=getattr(args, "n_orders", None), device=device,
+            precision=_profile_precision(args))
         cli = _sampler_cli_overrides(args)
         if cli:
             hp = dataclasses.replace(hp, **cli)
@@ -216,7 +240,10 @@ _PROVENANCE = {
     "adapt_ladder": "temperature ladders",
     "n_temps": "ladder sizes",
     "n_chains": "walker counts",
+    "n_stars": "star ensembles",
 }
+# fields no flag sets: the message names what sets them instead
+_NOT_FLAGS = {"n_stars": "stars in the presets table"}
 
 
 def _check_resume_provenance(ckpt_path, **expect):
@@ -231,18 +258,40 @@ def _check_resume_provenance(ckpt_path, **expect):
         if field not in meta:
             raise SystemExit(
                 f"refusing to resume: checkpoint {ckpt_path} does not record "
-                f"{field}; it was not written by this package's `run`.  "
+                f"{field}; it was not written by this package's `run` or "
+                "`batch`.  "
                 "Start a fresh outdir.")
         written = str(meta[field])
-        if written != str(current):
-            flag = {"n_temps": "temps", "n_chains": "chains"}.get(
-                field, field).replace("_", "-")
+        if written == str(current):
+            continue
+        if field in _NOT_FLAGS:
             raise SystemExit(
                 f"refusing to resume: checkpoint {ckpt_path} was written "
-                f"under --{flag} {written} but this run requests --{flag} "
+                f"with {written} {_NOT_FLAGS[field]} but this run has "
                 f"{current}; mixing the two would splice samples from "
-                f"different {_PROVENANCE[field]} into one posterior.  Re-run "
-                f"with --{flag} {written} (or start a fresh outdir).")
+                f"different {_PROVENANCE[field]} into one posterior.  "
+                "Restore the table (or start a fresh outdir).")
+        flag = {"n_temps": "temps", "n_chains": "chains"}.get(
+            field, field).replace("_", "-")
+        raise SystemExit(
+            f"refusing to resume: checkpoint {ckpt_path} was written "
+            f"under --{flag} {written} but this run requests --{flag} "
+            f"{current}; mixing the two would splice samples from "
+            f"different {_PROVENANCE[field]} into one posterior.  Re-run "
+            f"with --{flag} {written} (or start a fresh outdir).")
+
+
+def _refuse_precision_on(device, precision):
+    """Exit, before any work, when `precision` cannot run on `device`: f64
+    is the reference's CPU validation mode, and the Lorentzian kernels of a
+    CUDA device are float32 and bf16 (a CUDA tensor never takes the plain
+    path instead)."""
+    if precision == "f64" and torch.device(device).type == "cuda":
+        raise SystemExit(
+            f"--precision f64 --device {device}: f64 is a CPU validation "
+            "mode (the whole sampler in float64); the Lorentzian kernels of "
+            "a CUDA device run float32 and bf16 only.  Run it with "
+            "--device cpu.")
 
 
 def _model_at_median(problem, theta0):
@@ -250,29 +299,147 @@ def _model_at_median(problem, theta0):
     the problem's device (the forward kernel at one walker on a CUDA
     device), as a host array."""
     med = torch.as_tensor(
-        np.median(theta0.reshape(-1, theta0.shape[-1]), axis=0)
-        .astype(np.float32), device=problem.nu.device)
+        np.median(theta0.reshape(-1, theta0.shape[-1]), axis=0),
+        dtype=problem.params0.dtype, device=problem.nu.device)
     with torch.no_grad():
         return problem.model_fn(problem.embed(med), problem.nu).cpu().numpy()
 
 
-def cmd_run(args):
+_PHASES = ("B", "L", "A")
+_FRESH = ((), None, 0)     # a resume point: no phase done, none interrupted
+
+
+def _resume_point(ckpt, device):
+    """Load the checkpoint `ckpt`: (state, generator, its meta, resume
+    point), the point being (the phases it finished, the phase it stopped
+    inside or None, the records that phase had emitted)."""
+    from tamcmc_tpu_torch.io.checkpoint import load_checkpoint
+    state, gen, last, cmeta = load_checkpoint(str(ckpt), device)
+    done = _PHASES[:_PHASES.index(last)]
+    if int(cmeta.get("in_progress", 0)):
+        emitted = int(cmeta["emitted"])
+        print(f"resumed from {ckpt} mid-phase {last} ({emitted} records "
+              "already emitted)")
+        return state, gen, cmeta, (done, last, emitted)
+    print(f"resumed from {ckpt} after phase {last}")
+    return state, gen, cmeta, (done + (last,), None, 0)
+
+
+def _whole(records, s):
+    """A one-star run's records are its only star's."""
+    return records
+
+
+def _star_records(records, s):
+    """Star s's records of a stacked run (leading emit axis, then stars)."""
+    return {k: v[:, s] for k, v in records.items()}
+
+
+def _run_phases(problem, hp, betas, state, gen, plan, writers, split,
+                save_ckpt, ckpt_every, at=_FRESH, ladder=None, on_chunk=None,
+                around=None, on_phase_end=None):
+    """B -> L -> A from the resume point `at`, for `run` (one writer,
+    `split` = _whole) and `batch --stacked` (a writer a star, `split` =
+    _star_records).
+
+    Each chunk's records go to the writers, star s's through `split(records,
+    s)`, then to `on_chunk(phase, records)`.  Every `ckpt_every` chunks the
+    writers save their partial files and `save_ckpt(state, rng_state, phase,
+    extra)` writes a mid-phase checkpoint.  A phase ends with its files,
+    then its checkpoint, then the partial files gone: a kill between any two
+    leaves a state that `--resume` continues from byte-equal.  The steps of
+    a phase run inside the context `around(phase)`; `on_phase_end(phase,
+    n_steps, state, seconds)` follows each phase.  Returns (state, {phase:
+    host records}, {phase: steps, seconds, cold-rung acceptance (a list of
+    one a star for a stack), steps this leg ran})."""
+    from tamcmc_tpu_torch.sampler.driver import run_phase
+    done, mid_phase, mid_emitted = at
+    device = problem.nu.device
+    results, phases = {}, {}
+    for name, n_steps, adapt in plan.phases():
+        if n_steps <= 0 or name in done:
+            continue
+        already = mid_emitted if name == mid_phase else 0
+        if name == mid_phase:
+            for w in writers:
+                w.resume_phase(name, already * w.n_chains)
+        chunk_no = 0
+
+        def chunk_done(o, _n=name):
+            for s, w in enumerate(writers):
+                w.append_chunk(_n, split(o, s))
+            if on_chunk is not None:
+                on_chunk(_n, o)
+
+        def state_done(s, rng_state, emitted, _n=name):
+            nonlocal chunk_no
+            chunk_no += 1
+            if ckpt_every and chunk_no % ckpt_every == 0:
+                for w in writers:
+                    w.save_partial(_n)
+                save_ckpt(s, rng_state, _n,
+                          {"in_progress": 1, "emitted": emitted})
+
+        tp = time.perf_counter()
+        try:
+            with (around or (lambda _: contextlib.nullcontext()))(name):
+                state, outs = run_phase(
+                    problem, hp, betas, state, gen, n_steps, adapt=adapt,
+                    thin=plan.thin, chunk=plan.chunk, on_chunk=chunk_done,
+                    on_state=state_done, already_emitted=already,
+                    ladder=ladder)
+        except BaseException:
+            for w in writers:
+                w.abort()          # no .hdr: the phase stays resumable
+            raise
+        for w in writers:
+            w.finalize_phase(name, keep_partial=True)
+        if outs:
+            results[name] = outs
+        save_ckpt(state, gen.get_state(), name)
+        for w in writers:
+            w.discard_partial(name)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        dt = time.perf_counter() - tp
+        acc = state.acc_rate.mean(dim=-1)[..., 0].tolist()  # walker mean
+        phases[name] = {"steps": n_steps, "seconds": dt,
+                        "cold_acceptance": acc,
+                        # of this leg: fewer after a mid-phase resume
+                        "steps_run": plan.thin * (outs["theta0"].shape[0]
+                                                  if outs else 0)}
+        print(f"phase {name}: {n_steps} steps in {dt:.1f}s "
+              f"({n_steps / dt:.1f} it/s), cold acc="
+              + ", ".join(f"{a:.3f}" for a in np.atleast_1d(acc)))
+        if on_phase_end is not None:
+            on_phase_end(name, n_steps, state, dt)
+    return state, results, phases
+
+
+def _write_summaries(records, outdirs, names, split, max_rows):
+    """Print the posterior summary of each star's records and write it to
+    the star's summary.json."""
     from tamcmc_tpu_torch.diagnostics.summary import (format_summary,
                                                       posterior_summary)
-    from tamcmc_tpu_torch.io.checkpoint import (load_checkpoint,
-                                                save_checkpoint)
+    for s, (outdir, star_names) in enumerate(zip(outdirs, names)):
+        rows = posterior_summary(split(records, s)["theta0"],
+                                 names=star_names)
+        if len(outdirs) > 1:
+            print(f"--- star {s}: {outdir} ---")
+        print(format_summary(rows, max_rows=max_rows))
+        with open(pathlib.Path(outdir) / "summary.json", "w") as f:
+            json.dump(rows, f, indent=1)
+
+
+def cmd_run(args):
+    from tamcmc_tpu_torch.io.checkpoint import save_checkpoint
     from tamcmc_tpu_torch.io.outputs import OutputWriter
-    from tamcmc_tpu_torch.sampler.driver import run_phase
     from tamcmc_tpu_torch.sampler.mala import init_state
     from tamcmc_tpu_torch.sampler.tempering import make_beta_ladder
     from tamcmc_tpu_torch.utils.metrics import MetricsLogger
 
     precision = getattr(args, "precision", "f32")
-    if precision != "f32":
-        raise SystemExit(f"--precision {precision}: not ported yet; this "
-                         "package runs f32 only (the reference package has "
-                         "the bf16 profile stream and the f64 validation "
-                         "mode)")
+    _refuse_precision_on(args.device, precision)
     outdir = pathlib.Path(args.outdir)
     ckpt = outdir / "restore.npz"
     resume = getattr(args, "resume", False)
@@ -295,6 +462,9 @@ def cmd_run(args):
         require_matplotlib()
 
     problem, hp, plan, meta = _build_problem(args, device)
+    if precision == "f64":
+        # drawn in float32 first, so an f64 fit targets the f32 fit's data
+        problem = problem.astype(torch.float64)
     n_temps = args.temps or meta["n_temps"]
     n_chains = args.chains or meta["n_chains"]
     provenance = {"precision": precision, "runner": "local",
@@ -315,27 +485,24 @@ def cmd_run(args):
                   "updates": 0, "last_att": np.zeros(n_temps),
                   "last_acc": np.zeros(n_temps)}
 
-    order = ["B", "L", "A"]
-    done_phases, mid_phase, mid_emitted = [], None, 0
+    at = _FRESH
     if resume and ckpt.exists():
-        state, gen, last_phase, cmeta = load_checkpoint(str(ckpt), device)
+        state, gen, cmeta, at = _resume_point(ckpt, device)
         if ladder is not None:
             ladder.update(betas=np.asarray(cmeta["ladder_betas"]),
                           updates=int(cmeta["ladder_updates"]),
                           last_att=np.asarray(cmeta["ladder_last_att"]),
                           last_acc=np.asarray(cmeta["ladder_last_acc"]))
-        if int(cmeta.get("in_progress", 0)):
-            mid_phase = last_phase
-            mid_emitted = int(cmeta["emitted"])
-            done_phases = order[:order.index(last_phase)]
-            print(f"resumed from {ckpt} mid-phase {last_phase} "
-                  f"({mid_emitted} records already emitted)")
-        else:
-            done_phases = order[:order.index(last_phase) + 1]
-            print(f"resumed from {ckpt} after phase {last_phase}")
     else:
         gen = torch.Generator(device=device).manual_seed(args.seed)
-        state = init_state(problem, hp, n_temps, n_chains, gen)
+        init_scales = None
+        err_table = getattr(args, "init_scale_table", None)
+        if err_table:
+            # errors_default.cfg: per-parameter proposal seeds
+            from tamcmc_tpu_torch.io.refconfig import scales_from_errors
+            init_scales = scales_from_errors(problem, err_table)
+        state = init_state(problem, hp, n_temps, n_chains, gen,
+                           init_scales=init_scales)
 
     metrics = MetricsLogger(str(outdir / "metrics.jsonl"))
     metrics.log("run_start", n_temps=n_temps, n_chains=n_chains,
@@ -366,91 +533,51 @@ def cmd_run(args):
         metrics.log("inrun_report", phase=phase_name,
                     chunks_seen=report_chunks, artifacts=len(made))
 
-    results, phases = {}, {}
-    t0 = time.perf_counter()
-    for name, n_steps, adapt in plan.phases():
-        if n_steps <= 0 or name in done_phases:
-            continue
+    def on_chunk(name, o):
+        nonlocal report_chunks
+        if debug:
+            bad = chunk_finite_report(o)
+            if bad:
+                metrics.log("debug_nonfinite", phase=name, **bad)
+                print(f"[debug] non-finite values in chunk: {bad}")
+        if report_every:
+            report_buf.append(o)
+            del report_buf[:-REPORT_BUF_CAP]
+            report_chunks += 1
+            if report_chunks % report_every == 0:
+                write_inrun_report(name)
+
+    @contextlib.contextmanager
+    def around(name):
         report_buf.clear()         # traces must not span phase boundaries
-        already = 0
-        if name == mid_phase:
-            already = mid_emitted
-            writer.resume_phase(name, already * n_chains)
-        chunk_no = 0
+        if not (getattr(args, "profile", False) and name == "A"):
+            yield
+            return
+        from torch.profiler import ProfilerActivity, profile
+        acts = [ProfilerActivity.CPU] + (
+            [ProfilerActivity.CUDA] if device.type == "cuda" else [])
+        with profile(activities=acts) as prof:
+            yield
+        (outdir / "torch_trace").mkdir(exist_ok=True)
+        prof.export_chrome_trace(str(outdir / "torch_trace" / "acquire.json"))
 
-        def on_chunk(o, _n=name):
-            nonlocal report_chunks
-            writer.append_chunk(_n, o)
-            if debug:
-                bad = chunk_finite_report(o)
-                if bad:
-                    metrics.log("debug_nonfinite", phase=_n, **bad)
-                    print(f"[debug] non-finite values in chunk: {bad}")
-            if report_every:
-                report_buf.append(o)
-                del report_buf[:-REPORT_BUF_CAP]
-                report_chunks += 1
-                if report_chunks % report_every == 0:
-                    write_inrun_report(_n)
-
-        def on_state(s, rng_state, emitted, _n=name):
-            nonlocal chunk_no
-            chunk_no += 1
-            if ckpt_every and chunk_no % ckpt_every == 0:
-                writer.save_partial(_n)
-                save_ckpt(s, rng_state, _n,
-                          {"in_progress": 1, "emitted": emitted})
-
-        profiling = getattr(args, "profile", False) and name == "A"
-        if profiling:
-            from torch.profiler import ProfilerActivity, profile
-            acts = [ProfilerActivity.CPU] + (
-                [ProfilerActivity.CUDA] if device.type == "cuda" else [])
-            prof_ctx = profile(activities=acts)
-        else:
-            prof_ctx = contextlib.nullcontext()
-        tp = time.perf_counter()
-        try:
-            with prof_ctx as prof:
-                state, outs = run_phase(
-                    problem, hp, betas, state, gen, n_steps, adapt=adapt,
-                    thin=plan.thin, chunk=plan.chunk, on_chunk=on_chunk,
-                    on_state=on_state, already_emitted=already, ladder=ladder)
-        except BaseException:
-            writer.abort()         # no .hdr: the phase stays resumable
-            raise
-        if profiling:
-            (outdir / "torch_trace").mkdir(exist_ok=True)
-            prof.export_chrome_trace(str(outdir / "torch_trace" /
-                                         "acquire.json"))
-        # the phase's files, then its checkpoint, then the partial file goes:
-        # a kill between any two leaves a state `--resume` continues from
-        writer.finalize_phase(name, keep_partial=True)
-        if outs:
-            results[name] = outs
-        save_ckpt(state, gen.get_state(), name)
-        writer.discard_partial(name)
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        dt = time.perf_counter() - tp
-        acc_t = state.acc_rate.mean(dim=-1).cpu().numpy()    # walker mean
-        acc = float(acc_t[0])
-        swap = state.nswap_acc.cpu().numpy() / np.maximum(
-            state.nswap_att.cpu().numpy(), 1)
-        sigma = torch.exp(state.log_sigma).mean(dim=-1).cpu().numpy()
+    def log_phase(name, n_steps, s, dt):
+        acc_t = s.acc_rate.mean(dim=-1).cpu().numpy()    # walker mean
+        swap = s.nswap_acc.cpu().numpy() / np.maximum(
+            s.nswap_att.cpu().numpy(), 1)
+        sigma = torch.exp(s.log_sigma).mean(dim=-1).cpu().numpy()
         metrics.log("phase_end", phase=name, steps=n_steps,
                     wall_s=round(dt, 2), steps_per_s=round(n_steps / dt, 1),
-                    cold_acceptance=round(acc, 4),
+                    cold_acceptance=round(float(acc_t[0]), 4),
                     acceptance=[round(float(a), 4) for a in acc_t],
                     swap_rates=[round(float(s), 4) for s in swap[:-1]],
                     sigma=[round(float(s), 6) for s in sigma])
-        phases[name] = {"steps": n_steps, "seconds": dt,
-                        "cold_acceptance": acc,
-                        # of this leg: fewer after a mid-phase resume
-                        "steps_run": plan.thin * (outs["theta0"].shape[0]
-                                                  if outs else 0)}
-        print(f"phase {name}: {n_steps} steps in {dt:.1f}s "
-              f"({n_steps / dt:.1f} it/s), cold acc={acc:.3f}")
+
+    t0 = time.perf_counter()
+    state, results, phases = _run_phases(
+        problem, hp, betas, state, gen, plan, [writer], _whole, save_ckpt,
+        ckpt_every, at, ladder=ladder, on_chunk=on_chunk, around=around,
+        on_phase_end=log_phase)
     if ladder is not None:
         # `evidence` integrates the Acquire logL chains over the final
         # (frozen) ladder: overwrite the initial geometric one
@@ -463,15 +590,13 @@ def cmd_run(args):
 
     phase = "A" if "A" in results else (list(results)[-1] if results else None)
     if phase:
-        if phase == mid_phase:
+        if phase == at[1]:
             print(f"note: phase {phase} was resumed; the summary below "
                   "covers the records of this leg only (`stats --outdir "
                   f"{outdir}` reads the whole phase)")
         th = results[phase]["theta0"]
-        rows = posterior_summary(th, names=problem.free_names)
-        print(format_summary(rows, max_rows=getattr(args, "max_rows", 40)))
-        with open(outdir / "summary.json", "w") as f:
-            json.dump(rows, f, indent=1)
+        _write_summaries(results[phase], [outdir], [problem.free_names],
+                         _whole, getattr(args, "max_rows", 40))
         if not no_report:
             made = write_report(
                 outdir, results, problem=problem, names=problem.free_names,
@@ -481,6 +606,182 @@ def cmd_run(args):
           f"outputs in {outdir}")
     return {"phases": phases, "n_temps": n_temps, "n_chains": n_chains,
             "thin": plan.thin, "chunk": plan.chunk}
+
+
+def _presets(args):
+    """(stars, cfg_defaults, err_table) of `batch --presets`: the TOML
+    `[[star]]` rows, or a provisional config_presets.cfg with its optional
+    config_default.cfg master and errors_default.cfg proposal seeds."""
+    cfg_defaults, err_table = {}, None
+    if args.presets.endswith(".cfg"):
+        from tamcmc_tpu_torch.io.refconfig import (
+            read_config_default_provisional, read_config_presets_provisional,
+            read_errors_default_provisional)
+        try:
+            stars = read_config_presets_provisional(args.presets)
+            if args.config:
+                cfg_defaults = read_config_default_provisional(args.config)
+            if args.errors:
+                err_table = read_errors_default_provisional(args.errors)
+        except ValueError as e:
+            raise SystemExit(str(e))
+    else:
+        import tomllib
+        with open(args.presets, "rb") as f:
+            stars = tomllib.load(f).get("star", [])
+    if not stars:
+        raise SystemExit(f"{args.presets}: no [[star]] entries")
+    return stars, cfg_defaults, err_table
+
+
+def _star_run_args(args, star, i, base, cfg_defaults, err_table):
+    """The `run` arguments of preset row `star` (number i): its problem or
+    demo, seed, phase counts and outdir, the table's defaults below the
+    row's values, and the batch's device, precision, resume and report
+    flags."""
+    outdir = base / star.get("outdir", f"star_{i}")
+    argv = ["run", "--outdir", str(outdir), "--device", args.device,
+            "--seed", str(int(star.get("seed", 0))),
+            "--precision", args.precision, "--ckpt-every",
+            str(args.ckpt_every)]
+    if star.get("demo"):
+        argv += ["--demo", star["demo"]]
+    if star.get("problem"):
+        problem = pathlib.Path(star["problem"])
+        argv += ["--problem", str(problem if problem.is_absolute()
+                                  else base / problem)]
+    given = {"temps": star.get("temps") or cfg_defaults.get("temps"),
+             "chains": star.get("chains") or cfg_defaults.get("chains"),
+             "thin": star.get("thin") or cfg_defaults.get("thin"),
+             "burnin": star.get("burnin"), "learning": star.get("learning"),
+             "acquire": star.get("acquire"), "chunk": star.get("chunk")}
+    for flag, value in given.items():
+        if value is not None:
+            argv += [f"--{flag}", str(int(value))]
+    if args.resume:
+        argv.append("--resume")
+    if args.no_report or star.get("no_report", False):
+        argv.append("--no-report")
+    ns = _parser().parse_args(argv)
+    ns.sampler_overrides = cfg_defaults.get("sampler") or None
+    ns.init_scale_table = err_table
+    return ns
+
+
+def cmd_batch(args):
+    """Multi-star runs from a presets table, the reference's
+    config_presets.cfg workflow.  Default: serial, one `run` after another
+    into each row's outdir (`star_<i>` beside the table without one).
+    --stacked: every star in one sampler (_batch_stacked)."""
+    stars, cfg_defaults, err_table = _presets(args)
+    base = pathlib.Path(args.presets).parent
+    runs = [_star_run_args(args, star, i, base, cfg_defaults, err_table)
+            for i, star in enumerate(stars)]
+    if args.stacked:
+        return _batch_stacked(args, runs, base)
+    results = []
+    for i, ns in enumerate(runs):
+        print(f"=== star {i + 1}/{len(runs)}: {ns.problem or ns.demo} -> "
+              f"{ns.outdir} ===")
+        results.append(cmd_run(ns))
+    return results
+
+
+def _batch_stacked(args, runs, base):
+    """The aligned-grid stacked ensemble: all stars in ONE sampler whose
+    step leads with a star axis (sampler/ensemble.py), so on a CUDA device
+    one step of S stars makes the kernel launches of one step of one star.
+
+    Star 0's row sets the sampler, the phases, T, C and the seed.  Each
+    star's records stream to its own OutputWriter chunk by chunk, and the
+    stacked carry is checkpointed to `stacked_restore.npz` beside the table
+    at every phase's end and every `--ckpt-every` chunks: `--resume`
+    continues a killed ensemble with every star's files byte-equal to an
+    uninterrupted run's, as `run --resume` does.  The checkpoint records
+    run's fields (precision, runner, device type, chunk, thin, adapt_ladder,
+    temperatures, chains) and the number of stars, and a resume that
+    differs in one of them is refused."""
+    from tamcmc_tpu_torch.io.checkpoint import save_checkpoint
+    from tamcmc_tpu_torch.io.outputs import OutputWriter
+    from tamcmc_tpu_torch.sampler.ensemble import (
+        init_ensemble_state, stacked_problem, validate_stackable)
+    from tamcmc_tpu_torch.sampler.tempering import make_beta_ladder
+
+    ckpt = base / "stacked_restore.npz"
+    if args.resume:
+        # before anything is built or written
+        _check_resume_provenance(ckpt, precision=args.precision,
+                                 runner="stacked",
+                                 device=torch.device(args.device).type)
+    device = _device(args)
+    problems, outdirs = [], []
+    for i, ns in enumerate(runs):
+        problem, hp_i, plan_i, meta_i = _build_problem(ns, device)
+        problems.append(problem)
+        outdirs.append(pathlib.Path(ns.outdir))
+        if i == 0:
+            hp, plan, ns0 = hp_i, plan_i, ns
+            n_temps = ns.temps or meta_i["n_temps"]
+            n_chains = ns.chains or meta_i["n_chains"]
+    try:
+        validate_stackable(problems)
+    except ValueError as e:
+        raise SystemExit(
+            f"batch --stacked: problems are not stackable ({e}); "
+            "use the serial default for heterogeneous stars")
+    if hp.adapt_ladder:
+        raise SystemExit("batch --stacked runs the fixed geometric ladder; "
+                         "drop adapt_ladder (or run the stars serially)")
+    n_stars = len(problems)
+    provenance = {"precision": args.precision, "runner": "stacked",
+                  "device": device.type, "chunk": plan.chunk,
+                  "thin": plan.thin, "adapt_ladder": False,
+                  "n_temps": n_temps, "n_chains": n_chains,
+                  "n_stars": n_stars}
+    if args.resume:
+        _check_resume_provenance(ckpt, **provenance)
+    betas = make_beta_ladder(n_temps, hp.lambda_temp, device=device)
+    stacked = stacked_problem(problems)
+
+    at = _FRESH
+    if args.resume and ckpt.exists():
+        states, gen, _, at = _resume_point(ckpt, device)
+    else:
+        gen = torch.Generator(device=device).manual_seed(ns0.seed)
+        init_scales = None
+        if ns0.init_scale_table:
+            from tamcmc_tpu_torch.io.refconfig import scales_from_errors
+            init_scales = [scales_from_errors(p, ns0.init_scale_table)
+                           for p in problems]
+        states = init_ensemble_state(problems, hp, n_temps, n_chains, gen,
+                                     init_scales=init_scales)
+
+    for d in outdirs:
+        d.mkdir(parents=True, exist_ok=True)
+        np.save(d / "betas.npy", betas.cpu().numpy())     # for `evidence`
+    writers = [OutputWriter(str(d), p.free_names, n_temps, n_chains)
+               for d, p in zip(outdirs, problems)]
+
+    def save_ckpt(s, rng_state, phase, extra=None):
+        save_checkpoint(str(ckpt), s, rng_state, phase=phase,
+                        meta={**provenance, **(extra or {})})
+
+    print(f"stacked ensemble: {n_stars} stars x {n_temps} temps x "
+          f"{n_chains} walkers, {problems[0].ndim_free} free dims")
+    t0 = time.perf_counter()
+    states, results, phases = _run_phases(
+        stacked, hp, betas, states, gen, plan, writers, _star_records,
+        save_ckpt, args.ckpt_every, at)
+    for w in writers:
+        w.close()
+    print(f"ensemble done: {n_stars} stars in "
+          f"{time.perf_counter() - t0:.1f}s")
+    if "A" in results:
+        _write_summaries(results["A"], outdirs,
+                         [p.free_names for p in problems], _star_records, 12)
+    print(f"stacked outputs in {n_stars} star directories")
+    return {"phases": phases, "n_stars": n_stars, "n_temps": n_temps,
+            "n_chains": n_chains, "thin": plan.thin, "chunk": plan.chunk}
 
 
 def cmd_export(args):
@@ -741,7 +1042,7 @@ def _add_run_args(p):
                    help="adaptation target acceptance rate")
 
 
-def main(argv=None):
+def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="tamcmc_tpu_torch",
         description="PyTorch/CUDA port of the tamcmc peak-bagging engine")
@@ -794,12 +1095,56 @@ def main(argv=None):
                          "still leaves plots; needs matplotlib")
     pr.add_argument("--precision", choices=("f32", "bf16", "f64"),
                     default="f32",
-                    help="f32 runs; bf16 (Lorentzian profile stream in "
-                         "bfloat16) and f64 (double-precision validation "
-                         "mode) are the reference package's and exit with "
-                         "'not ported yet' here")
+                    help="f32 (default): float32 throughout.  bf16: the "
+                         "Lorentzian profile stream (1/(1+x^2) and its "
+                         "products) in bfloat16 with float32 sums, x and "
+                         "everything else float32: the kernels' bf16 "
+                         "instantiation on a CUDA device, the plain torch "
+                         "version on the cpu (the windowed sum stays "
+                         "float32).  f64: the whole sampler in float64, a "
+                         "validation mode of --device cpu; refused on a "
+                         "CUDA device, whose kernels are float32 and bf16")
     pr.add_argument("--max-rows", type=int, default=40, dest="max_rows")
     pr.set_defaults(fn=cmd_run)
+
+    pb = sub.add_parser("batch", help="run a presets table of stars, "
+                                      "serially or stacked (reference "
+                                      "config_presets.cfg workflow)")
+    pb.add_argument("--presets", required=True,
+                    help="TOML with [[star]] entries: problem/demo, outdir, "
+                         "optional overrides (seed, temps, chains, burnin, "
+                         "learning, acquire, thin, chunk, no_report); a .cfg "
+                         "path is read as a PROVISIONAL reference "
+                         "config_presets table (io/refconfig.py)")
+    pb.add_argument("--config",
+                    help="provisional config_default.cfg: master sampler/"
+                         "phase defaults applied below per-star overrides")
+    pb.add_argument("--errors",
+                    help="provisional errors_default.cfg: per-parameter "
+                         "initial proposal sigmas")
+    pb.add_argument("--resume", action="store_true",
+                    help="continue each star's run (or the stacked "
+                         "ensemble) from its checkpoint, as run --resume")
+    pb.add_argument("--precision", choices=("f32", "bf16"), default="f32",
+                    help="Lorentzian profile-stream arithmetic for every "
+                         "star (see run --precision)")
+    pb.add_argument("--stacked", action="store_true",
+                    help="advance ALL stars in one sampler whose step leads "
+                         "with a star axis (aligned grids and one model "
+                         "family required): on a CUDA device the kernels "
+                         "see S*T*C walkers, one step of S stars makes the "
+                         "launches of one star's step")
+    pb.add_argument("--ckpt-every", type=int, dest="ckpt_every", default=0,
+                    help="intra-phase checkpoint cadence in chunks, of each "
+                         "star's run or of the stacked ensemble (same "
+                         "semantics as run --ckpt-every)")
+    pb.add_argument("--device", default="cuda",
+                    help="torch device of every star (default cuda; cpu "
+                         "runs the plain torch versions of the kernels)")
+    pb.add_argument("--no-report", action="store_true",
+                    help="skip every star's matplotlib report (a TOML row's "
+                         "no_report = true skips its own)")
+    pb.set_defaults(fn=cmd_batch)
 
     pe = sub.add_parser("export", help="binary samples -> ASCII (bin2txt)")
     pe.add_argument("--outdir", required=True)
@@ -870,8 +1215,11 @@ def main(argv=None):
 
     pl = sub.add_parser("list-models", help="print the model registry")
     pl.set_defaults(fn=cmd_list_models)
+    return ap
 
-    args = ap.parse_args(argv)
+
+def main(argv=None):
+    args = _parser().parse_args(argv)
     return args.fn(args)
 
 

@@ -68,13 +68,15 @@ def _chi2_noise(model, gen):
     return model * torch.empty_like(model).exponential_(generator=gen)
 
 
-def _problem(name, fn, layout, priors, nu, spec, p0, spec_obj, **kw):
+def _problem(name, fn, layout, priors, nu, spec, p0, spec_obj,
+             precision="f32", **kw):
     if priors.ndim != layout.ndim:
         raise AssertionError((priors.ndim, layout.ndim))
     return Problem(model_fn=fn, layout=layout, priors=priors, nu=nu,
                    spec=spec, params0=_f32(p0, nu.device),
                    extra_logp=build_family_constraints(name, layout),
-                   model_meta={"name": name, "spec": spec_obj}, **kw)
+                   model_meta={"name": name, "spec": spec_obj,
+                               "precision": precision}, **kw)
 
 
 def _meta(truth, n_temps, n_chains, name, spec_kwargs, nu64):
@@ -82,7 +84,7 @@ def _meta(truth, n_temps, n_chains, name, spec_kwargs, nu64):
             "model": name, "spec_kwargs": spec_kwargs, "nu64": nu64}
 
 
-def _single_lorentzian(seed, ngrid, n_orders, device, gen):
+def _single_lorentzian(seed, ngrid, n_orders, device, gen, precision):
     spec_obj = SingleLorentzianSpec()
     fn, layout = build_single_lorentzian(spec_obj)
     nu64, nu = _grid(10.0, 90.0, 8192, device)
@@ -102,7 +104,7 @@ def _single_lorentzian(seed, ngrid, n_orders, device, gen):
             _meta(truth, 4, 8, SINGLE_LORENTZIAN, {}, nu64))
 
 
-def _harvey_background(seed, ngrid, n_orders, device, gen):
+def _harvey_background(seed, ngrid, n_orders, device, gen, precision):
     spec_obj = HarveyBackgroundSpec()
     fn, layout = build_harvey_background(spec_obj)
     nu64, nu = _grid(1.0, 4000.0, 16384, device)
@@ -193,7 +195,7 @@ _MS_GLOBAL_CONFIGS = {
 }
 
 
-def _ms_global_family(name, seed, ngrid, n_orders, device, gen):
+def _ms_global_family(name, seed, ngrid, n_orders, device, gen, precision):
     """configs 3 and 4: MS_Global a1etaa3 with static window segments
     anchored at params0."""
     (n_def, dnu, numax, n_temps, ngrid_def, lmax, plan,
@@ -202,7 +204,7 @@ def _ms_global_family(name, seed, ngrid, n_orders, device, gen):
     ngrid = ngrid or ngrid_def
     n_per_l = tuple(n_orders if l <= lmax else 0 for l in range(4))
     spec_obj = MSGlobalSpec(n_per_l=n_per_l)
-    fn, layout = build_ms_global(spec_obj)
+    fn, layout = build_ms_global(spec_obj, precision)
 
     rng = np.random.default_rng(seed)
     truth, vis_true = _ms_global_truth(layout, n_orders, lmax, dnu, numax,
@@ -226,14 +228,15 @@ def _ms_global_family(name, seed, ngrid, n_orders, device, gen):
             float(numax - half), float(2 * half / (ngrid - 1)),
             int(ngrid), 10.0)
     spec_win = dataclasses.replace(spec_obj, window_hint=hint)
-    fn, layout = build_ms_global(spec_win)
-    problem = _problem(MS_GLOBAL, fn, layout, priors, nu, spec, p0, spec_win)
+    fn, layout = build_ms_global(spec_win, precision)
+    problem = _problem(MS_GLOBAL, fn, layout, priors, nu, spec, p0, spec_win,
+                       precision)
     hp = MALAHyper(use_drift=True, dN_mixing=10, lambda_temp=lambda_temp)
     return problem, hp, plan, _meta(truth, n_temps, 6, MS_GLOBAL,
                                     {"n_per_l": n_per_l}, nu64)
 
 
-def _subgiant_mixed(name, seed, ngrid, n_orders, device, gen):
+def _subgiant_mixed(name, seed, ngrid, n_orders, device, gen, precision):
     """config 5: l=0/2 p modes fitted individually, the l=1 mixed-mode
     forest from the ARMM solver; `_inertia` turns on the mode-inertia
     height suppression."""
@@ -246,7 +249,7 @@ def _subgiant_mixed(name, seed, ngrid, n_orders, device, gen):
     spec_obj = RGBAsymptSpec(n_orders=n_orders, numin=numin,
                              numax_win=numax_w, n_p_poles=n_p,
                              n_g_poles=n_g, height_kind=height_kind)
-    fn, layout = build_rgb_asympt(spec_obj)
+    fn, layout = build_rgb_asympt(spec_obj, precision)
     truth = np.zeros(layout.ndim)
     f0 = 100.0 + dnu * (np.arange(n_orders) + 0.4)
     ho = layout.offset("heights")
@@ -294,7 +297,7 @@ def _subgiant_mixed(name, seed, ngrid, n_orders, device, gen):
     free = priors.free_mask
     p0[free] *= (1 + 0.01 * rng.standard_normal(free.sum()))
     problem = _problem(RGB_ASYMPT, fn, layout, priors, nu, spec, p0,
-                       spec_obj)
+                       spec_obj, precision)
     hp = MALAHyper(use_drift=True, dN_mixing=10, lambda_temp=1.3)
     plan = PhasePlan(burnin=4000, learning=15000, acquire=20000, thin=5)
     return problem, hp, plan, _meta(truth, 8, 6, RGB_ASYMPT, {
@@ -303,7 +306,7 @@ def _subgiant_mixed(name, seed, ngrid, n_orders, device, gen):
         nu64)
 
 
-def _ajfit(seed, ngrid, n_orders, device, gen):
+def _ajfit(seed, ngrid, n_orders, device, gen, precision):
     """a-coefficient table fit (io_ajfit [U]): 3 l=1 + 3 l=2 multiplets
     around numax, truth aj plus a gate-filter activity band; the data are
     nu_nlm with Gaussian noise, chi_square likelihood over the table."""
@@ -362,13 +365,17 @@ DEMOS = {
 
 
 def make_demo(name: str, seed: int = 0, ngrid: int = None,
-              n_orders: int = None, device="cpu"):
+              n_orders: int = None, device="cpu", precision: str = "f32"):
     """Returns (problem, hp, plan, meta) on `device`; meta holds the truth.
 
     ngrid/n_orders scale the MS_Global and subgiant demos down (tests); the
-    defaults are the production-scale configs."""
+    defaults are the production-scale configs.  `precision` is the
+    Lorentzian profile stream of every model the demo builds, the one that
+    draws its spectrum included, as the reference's demos do under
+    set_profile_precision."""
     name = name.lower()
     if name not in DEMOS:
         raise KeyError(f"unknown demo {name!r}; have {', '.join(DEMOS)}")
     gen = torch.Generator(device=device).manual_seed(seed)
-    return DEMOS[name](seed, ngrid, n_orders, torch.device(device), gen)
+    return DEMOS[name](seed, ngrid, n_orders, torch.device(device), gen,
+                       precision)

@@ -35,6 +35,7 @@ import torch
 from tamcmc_tpu_torch.models.common import fixed_noise, interp_monotonic
 from tamcmc_tpu_torch.ops.armm import mixed_mode_frequencies
 from tamcmc_tpu_torch.ops.lorentzian import sum_lorentzians
+from tamcmc_tpu_torch.ops.lorentzian_kernel import check_precision
 from tamcmc_tpu_torch.ops.noise import noise_background
 from tamcmc_tpu_torch.ops.visibilities import mode_visibility
 from tamcmc_tpu_torch.ops.widths import appourchaux2016_width
@@ -96,14 +97,16 @@ def _ridge_fit(f0):
     return dnu, torch.remainder(intercept / dnu, 1.0)
 
 
-def build_rgb_asympt(spec: RGBAsymptSpec):
+def build_rgb_asympt(spec: RGBAsymptSpec, precision: str = "f32"):
     """Return (model_fn, layout); model_fn carries `_assemble` (params ->
     (H, C, W, B, noise), components ordered l=0, l=2, l=1) and `_background`
-    (noise block -> background on a grid)."""
+    (noise block -> background on a grid).  `precision` is the Lorentzian
+    profile stream's ("f32" | "bf16", ops/lorentzian.py)."""
     if spec.height_kind not in ("equipartition", "inertia"):
         raise ValueError(f"unknown height_kind {spec.height_kind!r}")
     if spec.width_kind not in ("free", "app2016"):
         raise ValueError(f"unknown width_kind {spec.width_kind!r}")
+    check_precision(precision)
     layout = spec.layout()
 
     def assemble(params):
@@ -173,7 +176,7 @@ def build_rgb_asympt(spec: RGBAsymptSpec):
 
     def model_fn(params, nu, fixed=None):
         H, C, W, B, noise = assemble(params)
-        return sum_lorentzians(nu, H, C, W, B) + background(
+        return sum_lorentzians(nu, H, C, W, B, precision) + background(
             nu, noise, fixed_noise(layout, fixed))
 
     model_fn._spec = spec

@@ -28,6 +28,7 @@ import dataclasses
 import torch
 
 from tamcmc_tpu_torch.ops.lorentzian import sum_lorentzians
+from tamcmc_tpu_torch.ops.lorentzian_kernel import check_precision
 from tamcmc_tpu_torch.ops.rotation import split_frequencies_a1etaa3
 from tamcmc_tpu_torch.ops.visibilities import mode_visibility
 from tamcmc_tpu_torch.utils.blocks import BlockLayout
@@ -64,9 +65,11 @@ class MSLocalHnlmSpec:
         return BlockLayout.make(spec + [("rot", 2), ("noise", 1)])
 
 
-def _build_local(layout, n_per_l, m_weights):
+def _build_local(layout, n_per_l, m_weights, precision):
     """(model_fn, layout) of a local model: `m_weights(params, l)` gives the
-    (..., 2l+1) relative powers of degree l's m = -l..l components."""
+    (..., 2l+1) relative powers of degree l's m = -l..l components;
+    `precision` is the Lorentzian profile stream's."""
+    check_precision(precision)
     n = tuple(n_per_l) + (0,) * (4 - len(n_per_l))
 
     def assemble(params):
@@ -97,23 +100,24 @@ def _build_local(layout, n_per_l, m_weights):
 
     def model_fn(params, nu, fixed=None):
         H, C, W, B, noise = assemble(params)
-        return sum_lorentzians(nu, H, C, W, B) + background(nu, noise)
+        return sum_lorentzians(nu, H, C, W, B, precision) \
+            + background(nu, noise)
 
     model_fn._assemble = assemble      # params -> (H, C, W, B, noise)
     model_fn._background = background  # (nu, noise, const) -> background
     return model_fn, layout
 
 
-def build_ms_local(spec: MSLocalSpec):
+def build_ms_local(spec: MSLocalSpec, precision: str = "f32"):
     layout = spec.layout()
 
     def m_weights(params, l):
         return mode_visibility(l, layout.get(params, "inclination")[..., 0])
 
-    return _build_local(layout, spec.n_per_l, m_weights)
+    return _build_local(layout, spec.n_per_l, m_weights, precision)
 
 
-def build_ms_local_hnlm(spec: MSLocalHnlmSpec):
+def build_ms_local_hnlm(spec: MSLocalHnlmSpec, precision: str = "f32"):
     layout = spec.layout()
 
     def m_weights(params, l):
@@ -123,4 +127,4 @@ def build_ms_local_hnlm(spec: MSLocalHnlmSpec):
         hf = layout.get(params, f"hfactor_l{l}")             # (..., l+1)
         return torch.cat([hf.flip(-1), hf[..., 1:]], -1)     # (..., 2l+1)
 
-    return _build_local(layout, spec.n_per_l, m_weights)
+    return _build_local(layout, spec.n_per_l, m_weights, precision)

@@ -13,7 +13,8 @@ Appourchaux+2016 relation (`width_kind="app2016"`, ops/widths.py) over the
 l=0 ridge.  With a `window_hint` the Lorentzian sum runs over static window
 segments anchored at params0 (the reference's c*Gamma truncation algorithm)
 through the segment-mode kernels on CUDA; without one, through the dense
-mode.
+mode.  The build's `precision` picks the profile stream (ops/lorentzian.py)
+of every call and of the plan.
 """
 
 from __future__ import annotations
@@ -31,7 +32,8 @@ from tamcmc_tpu_torch.models.common import (
 from tamcmc_tpu_torch.ops.lorentzian import (
     make_static_window_groups, partition_window_groups, segment_values,
     sum_lorentzians, sum_lorentzians_segments)
-from tamcmc_tpu_torch.ops.lorentzian_kernel import segment_plan
+from tamcmc_tpu_torch.ops.lorentzian_kernel import (check_precision,
+                                                    segment_plan)
 from tamcmc_tpu_torch.ops.noise import noise_background
 from tamcmc_tpu_torch.ops.widths import appourchaux2016_width
 from tamcmc_tpu_torch.utils.blocks import BlockLayout
@@ -48,7 +50,9 @@ class MSGlobalSpec:
     noise_kind: str = "harvey_like"   # or "harvey_1985"
     width_kind: str = "free"          # or "app2016" (6-parameter relation)
     window_hint: tuple = None   # (params0_tuple, nu_start, nu_step, n_bins,
-                                # margin_uHz) -> static window segments
+                                # margin_uHz) -> static window segments; a
+                                # tuple of params0 tuples (a stacked
+                                # ensemble) takes the union of their windows
 
     @property
     def lmax(self):
@@ -102,23 +106,27 @@ def _window_segments(assemble, layout, window_hint):
 
     The components are assembled from the float32 params0 on the CPU and the
     window bounds formed in float32, the reference's arithmetic, so both
-    packages cut the grid into the same segments."""
-    if window_hint[0] and isinstance(window_hint[0][0], (tuple, list)):
-        raise NotImplementedError("multi-star window hints (stacked "
-                                  "ensembles) are not ported")
+    packages cut the grid into the same segments.  With one params0 per
+    star (a stacked ensemble's hint) each component's window is the union
+    of the stars' windows, so one segment plan serves every star."""
     p0_t, nu_start, nu_step, n_bins, margin = window_hint
-    p0 = torch.as_tensor(np.asarray(p0_t, dtype=np.float32))
-    with torch.no_grad():
-        _, C0, W0, _, _ = assemble(p0)
-    trunc0 = float(layout.get(p0, "trunc")[0]) or 40.0
-    hw = trunc0 * np.maximum(W0.numpy(), 1e-3) + float(margin)
-    C0 = C0.numpy()
-    lo, hi = C0 - hw, C0 + hw
+    stars = (p0_t if p0_t and isinstance(p0_t[0], (tuple, list))
+             else (p0_t,))
+    lo = hi = None
+    for star_p0 in stars:
+        p0 = torch.as_tensor(np.asarray(star_p0, dtype=np.float32))
+        with torch.no_grad():
+            _, C0, W0, _, _ = assemble(p0)
+        trunc0 = float(layout.get(p0, "trunc")[0]) or 40.0
+        hw = trunc0 * np.maximum(W0.numpy(), 1e-3) + float(margin)
+        C0 = C0.numpy()
+        lo = C0 - hw if lo is None else np.minimum(lo, C0 - hw)
+        hi = C0 + hw if hi is None else np.maximum(hi, C0 + hw)
     return partition_window_groups(make_static_window_groups(
         0.5 * (lo + hi), 0.5 * (hi - lo), nu_start, nu_step, int(n_bins)))
 
 
-def build_ms_global(spec: MSGlobalSpec):
+def build_ms_global(spec: MSGlobalSpec, precision: str = "f32"):
     """Return (model_fn, layout): model_fn(params (..., D), nu) -> (..., N).
 
     model_fn carries `_assemble` (params -> component arrays and noise
@@ -131,6 +139,7 @@ def build_ms_global(spec: MSGlobalSpec):
                          f"{', '.join(ROTATIONS)}")
     if spec.width_kind not in ("free", "app2016"):
         raise ValueError(f"unknown width_kind {spec.width_kind!r}")
+    check_precision(precision)
     layout = spec.layout()
     n_per_l = tuple(spec.n_per_l) + (0,) * (4 - len(spec.n_per_l))
     n0 = n_per_l[0]
@@ -198,7 +207,8 @@ def build_ms_global(spec: MSGlobalSpec):
     if spec.window_hint is not None:
         groups = _window_segments(assemble, layout, spec.window_hint)
         ncomp = sum(n * (2 * l + 1) for l, n in enumerate(spec.n_per_l))
-        plan = segment_plan(groups, ncomp, int(spec.window_hint[3]))
+        plan = segment_plan(groups, ncomp, int(spec.window_hint[3]),
+                            precision=precision)
 
     def background(nu, noise, const=None):
         """The background of a noise block on the bins `nu`; const: as
@@ -209,9 +219,10 @@ def build_ms_global(spec: MSGlobalSpec):
     def model_fn(params, nu, fixed=None):
         H, C, W, B, noise = assemble(params)
         if groups is not None:
-            modes = sum_lorentzians_segments(nu, H, C, W, B, groups, plan)
+            modes = sum_lorentzians_segments(nu, H, C, W, B, groups, plan,
+                                             precision)
         else:
-            modes = sum_lorentzians(nu, H, C, W, B)
+            modes = sum_lorentzians(nu, H, C, W, B, precision)
         return modes + background(nu, noise, fixed_noise(layout, fixed))
 
     model_fn._assemble = assemble      # params -> (H, C, W, B, noise)
@@ -233,7 +244,8 @@ def build_ms_global(spec: MSGlobalSpec):
             def bg_fn(lo, hi):
                 return background(nu[lo:hi], noise, const)
 
-            return segment_values(nu, H, C, W, B, groups, plan), bg_fn
+            return segment_values(nu, H, C, W, B, groups, plan,
+                                  precision), bg_fn
 
         model_fn._segments_and_bg = segments_and_bg
     return model_fn, layout

@@ -18,6 +18,7 @@ from tamcmc_tpu_torch.models.local import (
 )
 from tamcmc_tpu_torch.models.asymptotic import RGBAsymptSpec, build_rgb_asympt
 from tamcmc_tpu_torch.models.ajfit import AjFitSpec, build_ajfit
+from tamcmc_tpu_torch.ops.lorentzian_kernel import check_precision
 from tamcmc_tpu_torch.models.test_models import (
     TestGaussianSpec, build_test_gaussian,
     HarveyGaussianSpec, build_harvey_gaussian,
@@ -62,49 +63,63 @@ _FAMILIES = {}
 
 
 def _register(name, spec_cls, build, doc=""):
+    """`build(spec, precision)` -> (model_fn, layout); `precision` is the
+    Lorentzian profile stream's (ops/lorentzian.py)."""
     _FAMILIES[name.lower()] = ModelFamily(name, spec_cls, build, doc)
 
 
+def _spec_only(build):
+    """The build of a family without a Lorentzian sum: the profile
+    precision changes nothing there, as in the reference."""
+    return lambda spec, precision: build(spec)
+
+
 _register("model_MS_Global_a1etaa3_HarveyLike", MSGlobalSpec,
-          lambda spec: build_ms_global(spec),
+          lambda spec, precision: build_ms_global(spec, precision),
           "global p-mode fit, a1/eta0/a3 rotation, Harvey-like background")
 _register("model_MS_Global_a1etaa3_HarveyLike_Classic", MSGlobalSpec,
-          lambda spec: (_warn_variant_alias(
+          lambda spec, precision: (_warn_variant_alias(
               "model_MS_Global_a1etaa3_HarveyLike_Classic", "classic"),
-              build_ms_global(spec))[1],
+              build_ms_global(spec, precision))[1],
           "alias of a1etaa3_HarveyLike (the reference's _Classic differs "
           "only in .model-file IO conventions [U])")
 _register("model_MS_Global_a1etaa3_Harvey1985", MSGlobalSpec,
-          lambda spec: build_ms_global(
-              dataclasses.replace(spec, noise_kind="harvey_1985")),
+          lambda spec, precision: build_ms_global(
+              dataclasses.replace(spec, noise_kind="harvey_1985"), precision),
           "a1etaa3 rotation with the classic Harvey (1985) noise profile")
 _register("model_MS_Global_a1l_etaa3_HarveyLike", MSGlobalSpec,
-          lambda spec: build_ms_global(dataclasses.replace(spec, rotation="a1l")),
+          lambda spec, precision: build_ms_global(
+              dataclasses.replace(spec, rotation="a1l"), precision),
           "per-degree splittings a1(l=1), a1(l=2); l=3 uses their mean")
 _register("model_MS_Global_a1n_etaa3_HarveyLike", MSGlobalSpec,
-          lambda spec: build_ms_global(dataclasses.replace(spec, rotation="a1n")),
+          lambda spec, precision: build_ms_global(
+              dataclasses.replace(spec, rotation="a1n"), precision),
           "per-radial-order splittings a1(n), shared across degrees")
 _register("model_MS_Global_a1nl_etaa3_HarveyLike", MSGlobalSpec,
-          lambda spec: build_ms_global(dataclasses.replace(spec, rotation="a1nl")),
+          lambda spec, precision: build_ms_global(
+              dataclasses.replace(spec, rotation="a1nl"), precision),
           "per-(order, degree) splittings: a1(n, l=1) and a1(n, l=2) tables")
 _register("model_MS_Global_a1a2a3_HarveyLike", MSGlobalSpec,
-          lambda spec: build_ms_global(
-              dataclasses.replace(spec, rotation="a1a2a3")),
+          lambda spec, precision: build_ms_global(
+              dataclasses.replace(spec, rotation="a1a2a3"), precision),
           "a2 asphericity fitted directly instead of the centrifugal eta term")
 _register("model_MS_Global_a1etaa3_AppWidth_HarveyLike", MSGlobalSpec,
-          lambda spec: build_ms_global(
-              dataclasses.replace(spec, width_kind="app2016")),
+          lambda spec, precision: build_ms_global(
+              dataclasses.replace(spec, width_kind="app2016"), precision),
           "a1etaa3 rotation with the Appourchaux+2016 width relation "
           "(6 relation params replace the N0 free widths)")
 _register("model_MS_Global_aj_AppWidth_HarveyLike", MSGlobalSpec,
-          lambda spec: build_ms_global(
-              dataclasses.replace(spec, rotation="aj", width_kind="app2016")),
+          lambda spec, precision: build_ms_global(
+              dataclasses.replace(spec, rotation="aj", width_kind="app2016"),
+              precision),
           "a1..a6 a-coefficients with the Appourchaux+2016 width relation")
 _register("model_MS_Global_aj_HarveyLike", MSGlobalSpec,
-          lambda spec: build_ms_global(dataclasses.replace(spec, rotation="aj")),
+          lambda spec, precision: build_ms_global(
+              dataclasses.replace(spec, rotation="aj"), precision),
           "global p-mode fit, a1..a6 a-coefficients, Harvey-like background")
 _register("model_MS_Global_ajAlm_HarveyLike", MSGlobalSpec,
-          lambda spec: build_ms_global(dataclasses.replace(spec, rotation="ajAlm")),
+          lambda spec, precision: build_ms_global(
+              dataclasses.replace(spec, rotation="ajAlm"), precision),
           "global p-mode fit, odd aj + Alm activity asphericity")
 _register("model_RGB_asympt_a1etaa3_HarveyLike", RGBAsymptSpec,
           build_rgb_asympt,
@@ -113,11 +128,11 @@ _register("model_RGB_asympt_a1etaa3_freeWidth_HarveyLike", RGBAsymptSpec,
           build_rgb_asympt,
           "alias: per-order free widths are this implementation's default")
 _register("model_RGB_asympt_a1etaa3_AppWidth_HarveyLike", RGBAsymptSpec,
-          lambda spec: build_rgb_asympt(
-              dataclasses.replace(spec, width_kind="app2016")),
+          lambda spec, precision: build_rgb_asympt(
+              dataclasses.replace(spec, width_kind="app2016"), precision),
           "RGB/subgiant mixed-mode fit with the Appourchaux+2016 width "
           "relation on the p-mode ridge")
-_register("model_ajfit", AjFitSpec, build_ajfit,
+_register("model_ajfit", AjFitSpec, _spec_only(build_ajfit),
           "a-coefficient table fit: aj (j=1..6) + optional Alm activity "
           "asphericity to measured nu_nlm frequencies (io_ajfit [U]); "
           "Gaussian chi_square likelihood over the mode table, no spectrum")
@@ -125,16 +140,19 @@ _register("model_MS_local_basic", MSLocalSpec, build_ms_local,
           "windowed local fit, per-mode free parameters")
 _register("model_MS_local_Hnlm", MSLocalHnlmSpec, build_ms_local_hnlm,
           "local fit with free azimuthal height ratios (magnetic stars)")
-_register("model_Test_Gaussian", TestGaussianSpec, build_test_gaussian,
+_register("model_Test_Gaussian", TestGaussianSpec,
+          _spec_only(build_test_gaussian),
           "Gaussian bump + white noise (sampler smoke test)")
-_register("model_Harvey_Gaussian", HarveyGaussianSpec, build_harvey_gaussian,
+_register("model_Harvey_Gaussian", HarveyGaussianSpec,
+          _spec_only(build_harvey_gaussian),
           "Harvey profile + Gaussian envelope")
 _register("model_Single_Lorentzian", SingleLorentzianSpec,
-          build_single_lorentzian, "BASELINE config 1")
+          _spec_only(build_single_lorentzian), "BASELINE config 1")
 _register("model_Harvey_Background", HarveyBackgroundSpec,
-          build_harvey_background, "BASELINE config 2 noise-background fit")
+          _spec_only(build_harvey_background),
+          "BASELINE config 2 noise-background fit")
 _register("model_Kallinger2014_Gaussian", Kallinger2014Spec,
-          build_kallinger2014,
+          _spec_only(build_kallinger2014),
           "Kallinger+2014 two-component granulation background + Gaussian "
           "p-mode envelope, sinc^2-apodised")
 
@@ -274,30 +292,35 @@ def _resolve_family(name: str) -> ModelFamily:
         spec_cls, base = MSGlobalSpec, build_ms_global
     else:
         spec_cls, base = RGBAsymptSpec, build_rgb_asympt
-    build = (lambda spec, _b=base, _o=over:
-             _b(dataclasses.replace(spec, **_o)))
+    build = (lambda spec, precision, _b=base, _o=over:
+             _b(dataclasses.replace(spec, **_o), precision))
     return ModelFamily(name, spec_cls, build,
                        doc=f"combinator: {family} with {over}"
                            + (f" (variant {variant})" if variant else ""))
 
 
-def build_model(name: str, spec=None, **spec_kwargs):
+def build_model(name: str, spec=None, precision: str = "f32",
+                **spec_kwargs):
     """Build (model_fn, layout) for a named family.
 
     Either pass a ready spec dataclass, or kwargs for the family's spec
     class.  Names resolve through the explicit registry first, then the
     combinatorial grammar (parse_model_name) — any member of the reference's
-    rotation x width x noise x variant product builds.
+    rotation x width x noise x variant product builds.  `precision` ("f32"
+    | "bf16") is the Lorentzian profile stream of the families that sum
+    Lorentzians (MS_Global, RGB, MS_local); the reference sets it
+    process-wide instead (set_profile_precision).
     """
     fam = _resolve_family(name)
     if spec is None:
         spec = fam.spec_cls(**spec_kwargs)
-    fn, layout = fam.build(spec)
+    fn, layout = fam.build(spec, check_precision(precision))
     # introspection for tooling (Problem.model_meta); harmless on plain
     # closures
     try:
         fn._family_name = name
         fn._family_spec = spec
+        fn._precision = precision
     except AttributeError:
         pass
     return fn, layout

@@ -18,6 +18,19 @@ only: CUDA tensors go through the hand-written kernels of
 ops/lorentzian_kernel.py, CPU tensors through the plain versions here.  A
 CUDA tensor never falls back: a failed build, a bad argument or a refused
 launch raises.
+
+Precision of the profile stream.  The dense and segment sums take a
+`precision` argument, "f32" (the stream in the inputs' own floating type:
+float32, or float64 for an f64 problem) or "bf16", the reference's
+`set_profile_precision("bf16")` stream: x = (nu - c)(2/W) in float32, then
+bf16(x), inv = 1/(1 + xb^2) and (bf16(H) + bf16(2Hb) xb) inv in bfloat16,
+summed over components in float32; the backward casts g to bf16 and forms
+u, p, q, r, s in bfloat16 with float32 reductions, G and the closed form in
+float32.  The model build hands the precision down with every call (and
+into its LorentzPlan), so two problems of different precision live in one
+process; the reference latches it process-wide because its jit caches bake
+it in.  The windowed sums (`sum_lorentzians_trunc*`) are float32 only, in
+both packages.
 """
 
 from __future__ import annotations
@@ -28,6 +41,7 @@ import torch
 from tamcmc_tpu_torch.ops import lorentzian_kernel as _kernel
 
 _WFLOOR = 1e-6
+_BF16 = torch.bfloat16
 
 
 def _on_cuda(*tensors) -> bool:
@@ -48,34 +62,49 @@ def lorentzian_profile(nu, height, nu0, width, asym=0.0):
 # dense sum (plain)
 # ---------------------------------------------------------------------------
 
-def _fwd_impl(nu, H, C, W, B):
+def _fwd_impl(nu, H, C, W, B, precision="f32"):
     w = torch.clamp(W, min=_WFLOOR)
     iw = 2.0 / w
     hb2 = 2.0 * H * B
     x = (nu - C[..., None]) * iw[..., None]               # (..., NC, N)
-    inv = 1.0 / (1.0 + x * x)
     # frequency-independent continuum of the asymmetric terms: sum_k H b^2
-    return (torch.sum(H * B * B, dim=-1, keepdim=True)
-            + torch.sum((H[..., None] + hb2[..., None] * x) * inv, dim=-2))
+    cont = torch.sum(H * B * B, dim=-1, keepdim=True)
+    if precision == "bf16":
+        # x stays float32 (mode positions); the inv/product stream is bf16,
+        # each op rounded; the cross-component sum is float32
+        xb = x.to(_BF16)
+        inv = 1.0 / (1.0 + xb * xb)
+        contrib = (H[..., None].to(_BF16) + hb2[..., None].to(_BF16) * xb) \
+            * inv
+        return cont + torch.sum(contrib, dim=-2, dtype=x.dtype)
+    inv = 1.0 / (1.0 + x * x)
+    return cont + torch.sum((H[..., None] + hb2[..., None] * x) * inv, dim=-2)
 
 
-def _bwd_impl(nu, H, C, W, B, g):
+def _bwd_impl(nu, H, C, W, B, g, precision="f32"):
     """Closed-form cotangents of the factored form (reference `_bwd`):
       dL/dH = b^2 + (1 + 2bx)·inv,   dL/db = 2Hb + 2H·x·inv
       dL/dx = 2Hb·inv − (H + 2Hb·x)·2x·inv^2,   dx/dc = −2/w,  dx/dw = −x/w.
-    G = Σ g is shared by every component's constant parts."""
+    G = Σ g is shared by every component's constant parts.  In bf16 the
+    stream u..s runs in bfloat16 (g cast once), its five sums in float32."""
     w = torch.clamp(W, min=_WFLOOR)
     iw = 2.0 / w
     hb2 = 2.0 * H * B
     G = torch.sum(g, dim=-1, keepdim=True)
     x = (nu - C[..., None]) * iw[..., None]
+    if precision == "bf16":
+        x = x.to(_BF16)
+        gs = g.to(_BF16)
+    else:
+        gs = g
     inv = 1.0 / (1.0 + x * x)
-    u = g[..., None, :] * inv
+    u = gs[..., None, :] * inv
     p = x * u
     q = p * inv
     r = x * q
     s = x * r
-    Su, Sp, Sq, Sr, Ss = (torch.sum(t, dim=-1) for t in (u, p, q, r, s))
+    Su, Sp, Sq, Sr, Ss = (torch.sum(t, dim=-1, dtype=g.dtype)
+                          for t in (u, p, q, r, s))
     gh = B * B * G + Su + 2.0 * B * Sp
     gb = hb2 * G + 2.0 * H * Sp
     dx = hb2 * Su - 2.0 * H * Sq - 2.0 * hb2 * Sr
@@ -87,19 +116,23 @@ def _bwd_impl(nu, H, C, W, B, g):
 
 class _SumLorentzians(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, nu, H, C, W, B):
+    def forward(ctx, nu, H, C, W, B, precision):
         ctx.save_for_backward(nu, H, C, W, B)
-        return _fwd_impl(nu, H, C, W, B)
+        ctx.precision = precision
+        return _fwd_impl(nu, H, C, W, B, precision)
 
     @staticmethod
     def backward(ctx, g):
-        return (None,) + _bwd_impl(*ctx.saved_tensors, g)
+        return ((None,) + _bwd_impl(*ctx.saved_tensors, g, ctx.precision)
+                + (None,))
 
 
-def sum_lorentzians_plain(nu, H, C, W, B):
+def sum_lorentzians_plain(nu, H, C, W, B, precision="f32"):
     """Dense Lorentzian sum, plain torch: (..., NC) -> (..., N).
-    Zero-height components contribute exactly 0 (static padding)."""
-    return _SumLorentzians.apply(nu, H, C, W, B)
+    Zero-height components contribute exactly 0 (static padding).
+    `precision`: "f32" or "bf16", the profile stream (module docstring)."""
+    return _SumLorentzians.apply(nu, H, C, W, B,
+                                 _kernel.check_precision(precision))
 
 
 # ---------------------------------------------------------------------------
@@ -261,12 +294,13 @@ def _kernel_sum(nu, H, C, W, B, win, plan):
     return out.reshape(lead + (nu.shape[0],))
 
 
-def sum_lorentzians(nu, H, C, W, B):
-    """Dense Lorentzian sum: nu (N,), params (..., NC) -> (..., N)."""
+def sum_lorentzians(nu, H, C, W, B, precision="f32"):
+    """Dense Lorentzian sum: nu (N,), params (..., NC) -> (..., N), the
+    profile stream in `precision` ("f32" | "bf16")."""
     if _on_cuda(nu, H):
-        return _kernel_sum(nu, H, C, W, B, None,
-                           _kernel.dense_plan(nu.shape[0], H.shape[-1]))
-    return sum_lorentzians_plain(nu, H, C, W, B)
+        return _kernel_sum(nu, H, C, W, B, None, _kernel.dense_plan(
+            nu.shape[0], H.shape[-1], precision=precision))
+    return sum_lorentzians_plain(nu, H, C, W, B, precision)
 
 
 def sum_lorentzians_trunc_batched(nu, H, C, W, B, win):
@@ -294,40 +328,49 @@ def _segment_pieces_from_full(full, segments):
     return [(lo, hi, at[lo]) for _, lo, hi in segments if hi > lo]
 
 
-def _kernel_segments_full(nu, H, C, W, B, segments, plan):
+def _kernel_segments_full(nu, H, C, W, B, segments, plan, precision):
     if plan is None:
-        plan = _kernel.segment_plan(segments, H.shape[-1], nu.shape[0])
+        plan = _kernel.segment_plan(segments, H.shape[-1], nu.shape[0],
+                                    precision=precision)
+    elif plan.precision != precision:
+        raise ValueError(f"the plan is for precision {plan.precision!r}, "
+                         f"the call asks for {precision!r}")
     return _kernel_sum(nu, H, C, W, B, None, plan)
 
 
-def segment_values_plain(nu, H, C, W, B, segments):
+def segment_values_plain(nu, H, C, W, B, segments, precision="f32"):
     out = []
     for idx, lo, hi in segments:
         if hi <= lo:
             continue
         ii = torch.as_tensor(idx, device=H.device)
         out.append((lo, hi, sum_lorentzians_plain(
-            nu[lo:hi], H[..., ii], C[..., ii], W[..., ii], B[..., ii])))
+            nu[lo:hi], H[..., ii], C[..., ii], W[..., ii], B[..., ii],
+            precision)))
     return out
 
 
-def segment_values(nu, H, C, W, B, segments, plan=None):
+def segment_values(nu, H, C, W, B, segments, plan=None, precision="f32"):
     """Each disjoint segment's mode sum: [(lo, hi, values (..., hi - lo))].
 
     `segments` is partition_window_groups output; `plan` its
-    lorentzian_kernel.segment_plan (built from `segments` if None).  The
-    pieces feed likelihood_chi22p_pieces."""
+    lorentzian_kernel.segment_plan (built from `segments` if None), whose
+    precision must be `precision`.  The pieces feed
+    likelihood_chi22p_pieces."""
     if _on_cuda(nu, H):
-        full = _kernel_segments_full(nu, H, C, W, B, segments, plan)
+        full = _kernel_segments_full(nu, H, C, W, B, segments, plan,
+                                     precision)
         return _segment_pieces_from_full(full, segments)
-    return segment_values_plain(nu, H, C, W, B, segments)
+    return segment_values_plain(nu, H, C, W, B, segments, precision)
 
 
-def sum_lorentzians_segments_plain(nu, H, C, W, B, segments):
+def sum_lorentzians_segments_plain(nu, H, C, W, B, segments,
+                                   precision="f32"):
     N = nu.shape[0]
     lead = H.shape[:-1]
     pieces, pos = [], 0
-    for lo, hi, seg in segment_values_plain(nu, H, C, W, B, segments):
+    for lo, hi, seg in segment_values_plain(nu, H, C, W, B, segments,
+                                            precision):
         if lo > pos:
             pieces.append(nu.new_zeros(lead + (lo - pos,)))
         pieces.append(seg)
@@ -337,9 +380,12 @@ def sum_lorentzians_segments_plain(nu, H, C, W, B, segments):
     return torch.cat(pieces, dim=-1)
 
 
-def sum_lorentzians_segments(nu, H, C, W, B, segments, plan=None):
+def sum_lorentzians_segments(nu, H, C, W, B, segments, plan=None,
+                             precision="f32"):
     """Windowed accumulation over DISJOINT sorted segments -> (..., N),
     zero outside every segment."""
     if _on_cuda(nu, H):
-        return _kernel_segments_full(nu, H, C, W, B, segments, plan)
-    return sum_lorentzians_segments_plain(nu, H, C, W, B, segments)
+        return _kernel_segments_full(nu, H, C, W, B, segments, plan,
+                                     precision)
+    return sum_lorentzians_segments_plain(nu, H, C, W, B, segments,
+                                          precision)

@@ -61,13 +61,15 @@ def noise_background(nu, noise_params, n_harvey: int = 3,
     const: optional (noise0 (3*n_harvey + 1,), fixed (3*n_harvey + 1,) bool).
     A Harvey component whose A, B and p are all fixed, and a fixed white
     level, are read from noise0 instead: they depend on no walker, so they
-    are evaluated once, unbatched and outside autograd.  The values, and the
-    order of the sum, are those of the batched evaluation."""
+    are evaluated once, unbatched and outside autograd (once per star where
+    noise0 has a leading star axis, (S, 1, 1, 3*n_harvey + 1)).  The
+    values, and the order of the sum, are those of the batched
+    evaluation."""
     fn = harvey_like if kind == "harvey_like" else harvey_1985
 
     def block(lo, hi):
         if const is not None and bool(const[1][lo:hi].all()):
-            return const[0][lo:hi].detach()
+            return const[0][..., lo:hi].detach()
         return noise_params[..., lo:hi]
 
     total = torch.zeros_like(nu)

@@ -48,17 +48,20 @@ def raw_step(problem, hp, betas, state, generator, adapt):
 
 def make_record(state: SamplerState):
     """One emitted (thinned) record: the cold rung's walkers in physical
-    units plus adaptation telemetry (device tensors)."""
+    units plus adaptation telemetry (device tensors).  A stacked ensemble's
+    state gives every entry a leading star axis."""
+    uc, us = state.u_center[..., None, :], state.u_scale[..., None, :]
     return {
-        "theta0": state.u_center + state.u_scale * state.theta[0],  # (C, Df)
+        "theta0": uc + us * state.theta[..., 0, :, :],              # (C, Df)
         "logL": state.logL,                                         # (T, C)
         "logP": state.logP,                                         # (T, C)
-        "logP0": state.logP[0],                                     # (C,)
-        "log_sigma": torch.mean(state.log_sigma, 1),                # (T,)
-        "acc_rate": torch.mean(state.acc_rate, 1),                  # (T,)
-        "mu0": state.u_center + state.u_scale * torch.mean(state.mu[0], 0),
+        "logP0": state.logP[..., 0, :],                             # (C,)
+        "log_sigma": torch.mean(state.log_sigma, -1),               # (T,)
+        "acc_rate": torch.mean(state.acc_rate, -1),                 # (T,)
+        "mu0": state.u_center + state.u_scale * torch.mean(
+            state.mu[..., 0, :, :], -2),                            # (Df,)
         "cov_diag0": state.u_scale**2 * torch.mean(torch.diagonal(
-            state.cov[0], dim1=-2, dim2=-1), 0),                    # (Df,)
+            state.cov[..., 0, :, :, :], dim1=-2, dim2=-1), -2),     # (Df,)
         "swap_att": state.nswap_att,                                # (T,)
         "swap_acc": state.nswap_acc,                                # (T,)
     }

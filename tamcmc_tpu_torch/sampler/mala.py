@@ -9,6 +9,11 @@ Adaptation:  mu, Sigma by the ensemble or walker estimator; log sigma by
              Robbins-Monro toward the target acceptance; gamma_k =
              c0/(k0 + k)^alpha.  The Cholesky factor refreshes every
              dN_chol steps (host-integer step counter, no device sync).
+
+A stacked ensemble (sampler/ensemble.py) runs the same step with a leading
+star axis: theta (S, T, C, Df), the per-star vectors (scales0, u_center,
+u_scale) (S, Df).  Walker moments reduce over C only, never over S; with S
+absent every tensor and every operation is the single-star step's.
 """
 
 from __future__ import annotations
@@ -35,7 +40,13 @@ def _batched_tri_inverse(chol):
 
 
 def _matvec(m, v):
-    return torch.einsum("tcij,tcj->tci", m, v)
+    return torch.einsum("tcij,tcj->tci" if v.ndim == 3 else
+                        "stcij,stcj->stci", m, v)
+
+
+def _per_walker(v):
+    """A per-star (..., Df) vector broadcast against (..., T, C, Df)."""
+    return v[..., None, None, :]
 
 
 def default_init_scales(problem) -> np.ndarray:
@@ -103,10 +114,12 @@ def mala_step(problem: Problem, hp: MALAHyper, betas, state: SamplerState,
     """One batched MALA(+adaptation) step for all (T, C) walkers.
 
     betas: (T,) inverse temperatures.  draws: optional (xi (T,C,Df) normal,
-    u_acc (T,C) uniform) used instead of drawing from `generator` (the
-    reference's hook; parity tests feed both packages the same numbers)."""
-    T, C, Df = state.theta.shape
+    u_acc (T,C) uniform; (S, T, C, ...) for a stacked ensemble) used
+    instead of drawing from `generator` (the reference's hook; parity tests
+    feed both packages the same numbers)."""
+    C, Df = state.theta.shape[-2:]
     dt, dev = state.theta.dtype, state.theta.device
+    u_center, u_scale = _per_walker(state.u_center), _per_walker(state.u_scale)
     sigma = torch.exp(state.log_sigma)                       # (T, C)
     s2 = (sigma**2)[..., None]
     b = betas[:, None]                                       # (T, 1)
@@ -117,16 +130,17 @@ def mala_step(problem: Problem, hp: MALAHyper, betas, state: SamplerState,
         mean_fwd = state.theta + 0.5 * s2 * _matvec(state.cov, drift)
     else:
         mean_fwd = state.theta
-    xi = (torch.randn((T, C, Df), generator=generator, dtype=dt, device=dev)
+    xi = (torch.randn(state.theta.shape, generator=generator, dtype=dt,
+                      device=dev)
           if draws is None else draws[0])
     prop = mean_fwd + sigma[..., None] * _matvec(state.chol, xi)
 
     # the model sees physical coordinates; gradients chain back to u-space
-    prop_x = state.u_center + state.u_scale * prop
+    prop_x = u_center + u_scale * prop
     if hp.use_drift:
         (logLp, logPp), (gLp, gPp) = problem.batched_logparts_and_grad(prop_x)
-        gLp = gLp * state.u_scale
-        gPp = gPp * state.u_scale
+        gLp = gLp * u_scale
+        gPp = gPp * u_scale
         gp = b[..., None] * gLp + gPp
         drift_p = _truncate_drift(gp, hp.drift_delta)
         mean_rev = prop + 0.5 * s2 * _matvec(state.cov, drift_p)
@@ -141,7 +155,8 @@ def mala_step(problem: Problem, hp: MALAHyper, betas, state: SamplerState,
         q_corr = 0.0
 
     dlog = b * (logLp - state.logL) + (logPp - state.logP) + q_corr
-    u_acc = (torch.rand((T, C), generator=generator, dtype=dt, device=dev)
+    u_acc = (torch.rand(state.logL.shape, generator=generator, dtype=dt,
+                        device=dev)
              if draws is None else draws[1])
     accept = torch.log(u_acc + 1e-38) < dlog                 # (T, C)
     accf = accept.to(dt)
@@ -164,11 +179,11 @@ def mala_step(problem: Problem, hp: MALAHyper, betas, state: SamplerState,
         gamma = hp.gain_c0 / (hp.gain_k0 + k) ** hp.gain_alpha
         if hp.resolved_cov_estimator(C, Df) == "ensemble":
             # pooled cross-walker moments per temperature
-            mean_c = torch.mean(theta, dim=1, keepdim=True)  # (T, 1, Df)
+            mean_c = torch.mean(theta, dim=-2, keepdim=True)  # (T, 1, Df)
             mu = state.mu + gamma * (mean_c - state.mu)
             dev_ = theta - mu
             emp = torch.mean(dev_[..., :, None] * dev_[..., None, :],
-                             dim=1, keepdim=True)
+                             dim=-3, keepdim=True)
             cov = state.cov + gamma * (emp - state.cov)
         else:
             # per-walker expanding-window moments (1/k gain)
@@ -179,7 +194,8 @@ def mala_step(problem: Problem, hp: MALAHyper, betas, state: SamplerState,
             cov = state.cov + gm * (emp - state.cov)
         if step % hp.dN_chol == 0:
             eye = torch.eye(Df, dtype=dt, device=dev)
-            floor = torch.diag(hp.cov_floor * state.scales0**2)
+            floor = torch.diag_embed(
+                _per_walker(hp.cov_floor * state.scales0**2))
             ch, info = torch.linalg.cholesky_ex(cov + floor + hp.eps_cov * eye)
             # SPD guard: a failed factorisation keeps the previous factor
             bad = (info != 0) | torch.isnan(ch).any(dim=(-2, -1))
@@ -200,5 +216,5 @@ def mala_step(problem: Problem, hp: MALAHyper, betas, state: SamplerState,
     return state.replace(
         theta=theta, logL=logL, logP=logP, gradL=gradL, gradP=gradP,
         mu=mu, cov=cov, chol=chol, ichol=ichol, log_sigma=log_sigma,
-        step=step, naccept=state.naccept + torch.mean(accf, dim=1),
+        step=step, naccept=state.naccept + torch.mean(accf, dim=-1),
         nprop=state.nprop + 1.0, acc_rate=acc_rate)

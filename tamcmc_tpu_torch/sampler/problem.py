@@ -39,6 +39,21 @@ class Problem:
             raise ValueError(f"prior table has {self.priors.ndim} rows, "
                              f"layout {self.layout.ndim}")
 
+    def astype(self, dtype):
+        """Copy with nu, spec, params0, sigma_spec and mask cast to `dtype`.
+
+        The f64 validation path (`run --precision f64`, CPU only): the
+        reference samples in double precision [U], and every state tensor
+        init_state makes follows params0's dtype, so the whole sampler then
+        runs in float64.  What the model closure baked in at build time (the
+        window segments) stays as built, from float32 params0, as in the
+        reference's Problem.astype."""
+        def c(a):
+            return None if a is None else a.to(dtype)
+        return dataclasses.replace(
+            self, nu=c(self.nu), spec=c(self.spec), params0=c(self.params0),
+            sigma_spec=c(self.sigma_spec), mask=c(self.mask))
+
     # ---- free-subspace machinery (static) ----
     @property
     def free_idx(self) -> np.ndarray:
@@ -91,7 +106,8 @@ class Problem:
             if is_free:
                 pieces.append(x[..., flo:flo + (hi - lo)])
             else:
-                pieces.append(self.params0[lo:hi].expand(batch + (hi - lo,)))
+                pieces.append(self.params0[..., lo:hi].expand(
+                    batch + (hi - lo,)))
         return torch.cat(pieces, dim=-1)
 
     def extract(self, full):

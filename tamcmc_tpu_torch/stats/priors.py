@@ -31,21 +31,21 @@ class PriorKind(IntEnum):
 
 
 def _lp_uniform(h, x):
-    lo, hi = h[:, 0], h[:, 1]
+    lo, hi = h[..., 0], h[..., 1]
     inside = (x >= lo) & (x <= hi)
     lp = -torch.log(torch.clamp(hi - lo, min=1e-30))
     return torch.where(inside, lp, NEG_BIG)
 
 
 def _lp_gaussian(h, x):
-    mu, sig = h[:, 0], torch.clamp(h[:, 1], min=1e-30)
+    mu, sig = h[..., 0], torch.clamp(h[..., 1], min=1e-30)
     return -0.5 * ((x - mu) / sig) ** 2 - torch.log(sig * _SQRT2PI)
 
 
 def _lp_jeffreys(h, x):
     """p(x) = 1 / ((x + h0) ln(1 + h1/h0)) on [0, h1]."""
-    knee = torch.clamp(h[:, 0], min=1e-30)
-    hi = torch.maximum(h[:, 1], knee)
+    knee = torch.clamp(h[..., 0], min=1e-30)
+    hi = torch.maximum(h[..., 1], knee)
     inside = (x >= 0.0) & (x <= hi)
     norm = torch.log1p(hi / knee)
     lp = -torch.log(torch.clamp(x + knee, min=1e-30)) - torch.log(norm)
@@ -53,7 +53,7 @@ def _lp_jeffreys(h, x):
 
 
 def _lp_uniform_gaussian(h, x):
-    lo, hi, sig = h[:, 0], h[:, 1], torch.clamp(h[:, 2], min=1e-30)
+    lo, hi, sig = h[..., 0], h[..., 1], torch.clamp(h[..., 2], min=1e-30)
     Z = (hi - lo) + sig * _SQRT2PI / 2.0
     flat = (x >= lo) & (x <= hi)
     lp_flat = -torch.log(torch.clamp(Z, min=1e-30))
@@ -62,9 +62,9 @@ def _lp_uniform_gaussian(h, x):
 
 
 def _lp_gug(h, x):
-    lo, hi = h[:, 0], h[:, 1]
-    sig_lo = torch.clamp(h[:, 2], min=1e-30)
-    sig_hi = torch.clamp(h[:, 3], min=1e-30)
+    lo, hi = h[..., 0], h[..., 1]
+    sig_lo = torch.clamp(h[..., 2], min=1e-30)
+    sig_hi = torch.clamp(h[..., 3], min=1e-30)
     Z = (hi - lo) + (sig_lo + sig_hi) * _SQRT2PI / 2.0
     lp_flat = -torch.log(torch.clamp(Z, min=1e-30))
     lp_lo = lp_flat - 0.5 * ((x - lo) / sig_lo) ** 2
@@ -83,7 +83,9 @@ _KIND_FNS = {PriorKind.UNIFORM: _lp_uniform,
 class PriorTable:
     """Static prior specification for a D-dim parameter vector.
 
-    kinds: (D,) int PriorKind codes; hypers: (D, 4); names: optional."""
+    kinds: (D,) int PriorKind codes; hypers: (D, 4), or (..., D, 4) with
+    leading axes that broadcast against the parameters' (a stacked
+    ensemble's (S, 1, 1, D, 4): one row set per star); names: optional."""
     kinds: np.ndarray
     hypers: np.ndarray
     names: tuple = ()
@@ -91,8 +93,8 @@ class PriorTable:
                                          repr=False)
 
     def __post_init__(self):
-        if self.kinds.shape[0] != self.hypers.shape[0] \
-                or self.hypers.shape[1:] != (4,):
+        if self.hypers.ndim < 2 \
+                or self.hypers.shape[-2:] != (self.kinds.shape[0], 4):
             raise ValueError(f"kinds {self.kinds.shape} and hypers "
                              f"{self.hypers.shape} do not form a (D, 4) table")
 
@@ -114,8 +116,9 @@ class PriorTable:
             self._on_device[key] = [
                 (fn, torch.as_tensor(np.nonzero(kinds == int(kind))[0],
                                      device=device),
-                 torch.as_tensor(np.asarray(self.hypers)[kinds == int(kind)],
-                                 dtype=dtype, device=device))
+                 torch.as_tensor(
+                     np.asarray(self.hypers)[..., kinds == int(kind), :],
+                     dtype=dtype, device=device))
                 for kind, fn in _KIND_FNS.items()
                 if np.any(kinds == int(kind))]
         return self._on_device[key]

@@ -248,11 +248,19 @@ def test_export_thins_and_ranges_on_the_emit_axis(tmp_path, capsys, flags,
 
 @pytest.mark.parametrize("precision", ["bf16", "f64"])
 def test_other_precisions_exit_with_not_ported_yet(tmp_path, precision):
-    with pytest.raises(SystemExit, match=f"--precision {precision}: not "
-                                         "ported yet"):
-        cli.main(["run", "--demo", "single_lorentzian", "--device", "cpu",
-                  "--precision", precision, "--outdir", str(tmp_path / "o")])
-    assert not (tmp_path / "o").exists()
+    """The two other precisions used to exit here; they are ported now and
+    run on the cpu, each recorded in the checkpoint (their numbers are
+    held against the reference in tests/test_torch_precision.py)."""
+    res = cli.main(["run", "--demo", "single_lorentzian", "--device", "cpu",
+                    "--precision", precision, "--temps", "2", "--chains",
+                    "4", "--burnin", "10", "--learning", "10", "--acquire",
+                    "10", "--thin", "5", "--no-report", "--outdir",
+                    str(tmp_path / "o")])
+    assert set(res["phases"]) == {"B", "L", "A"}
+    z = np.load(tmp_path / "o" / "restore.npz")
+    assert str(z["meta_precision"]) == precision
+    assert z["state_theta"].dtype == (np.float64 if precision == "f64"
+                                      else np.float32)
 
 
 def test_run_without_matplotlib_fails_before_it_samples(tmp_path,

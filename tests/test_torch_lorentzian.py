@@ -437,3 +437,158 @@ def test_forget_tickets_drops_the_counters():
     plan._tickets["key"] = object()
     plan.forget_tickets()
     assert plan._tickets == {}
+
+
+# ---------------------------------------------------------------------------
+# the bf16 instantiation: its traversal of bin pairs, replayed
+# ---------------------------------------------------------------------------
+
+def _bf16(a):
+    return torch.as_tensor(np.asarray(a, np.float32)).to(torch.bfloat16)
+
+
+def _f32(t):
+    return t.float().numpy()
+
+
+def _bwd_bf16_pairs(start, end, lanes=32):
+    """The bin pairs (b0, b1) one warp of the bf16 backward forms over
+    [start, end) of a staged chunk (csrc/lorentzian.cu bwd_range): a lane
+    each for the up to three bins before the first 16-byte boundary and
+    after the last, alone in a pair (b1 None: its partner lane has g = 0),
+    and every float4 group in between as two pairs."""
+    a_lo = min((start + 3) & ~3, end)
+    a_hi = max(end & ~3, a_lo)
+    pairs = [(n, None) for n in range(start, start + lanes) if n < a_lo]
+    for lane in range(lanes):
+        for i in range(a_lo + 4 * lane, a_hi, 4 * lanes):
+            pairs += [(i, i + 1), (i + 2, i + 3)]
+    pairs += [(n, None) for n in range(a_hi, a_hi + lanes) if n < end]
+    return pairs
+
+
+def _bf16_profile(x, h, hb2):
+    """The plain version's bf16 stream for one component: float32 x in,
+    (h + 2hb x) / (1 + x^2) out, each op rounded to bf16."""
+    xb = _bf16(x)
+    return _f32((_bf16(h) + _bf16(hb2) * xb) * (1.0 / (1.0 + xb * xb)))
+
+
+def _replay_bf16_kernels(plan, nu, H, C, W, B, g):
+    """numpy replay of the bf16 instantiation over a (segment or dense)
+    plan, each bf16 op rounded as the plain version rounds it.  Forward: as
+    _replay_kernels, the profile in bf16, h b^2 and the sums float32 (a
+    thread's bin pairs are masked per lane, so a pair is never split).
+    Backward: per slot the pairs of _bwd_bf16_pairs, a lone bin's partner
+    lane at g = 0, each of u, p, q, r, s widened before its float32 sum;
+    the sum of g and the closed form float32."""
+    bt, nc = H.shape
+    n_bins = nu.shape[0]
+    iw = (2.0 / np.maximum(W, 1e-6)).astype(np.float32)
+    hb2 = (2 * H * B).astype(np.float32)
+    out = np.zeros((bt, n_bins), np.float32)
+    for t in range(plan.n_tiles):
+        n = np.arange(t * plan.tile, min((t + 1) * plan.tile, n_bins))
+        acc = np.zeros((bt, n.shape[0]), np.float32)
+        cst = np.zeros((bt, 1), np.float32)
+        for p in range(plan.tile_ptr[t], plan.tile_ptr[t + 1]):
+            k = plan.tile_comp[p]
+            x = (nu[n][None, :] - C[:, k:k + 1]) * iw[:, k:k + 1]
+            v = _bf16_profile(x, H[:, k:k + 1], hb2[:, k:k + 1])
+            hbb = (H[:, k:k + 1] * B[:, k:k + 1] * B[:, k:k + 1])
+            if p < plan.tile_full[t]:
+                acc += v
+                cst += hbb
+            else:
+                keep = (n >= plan.comp_lo[k]) & (n < plan.comp_hi[k])
+                acc += np.where(keep, v + hbb, 0)
+        out[:, n] = acc + cst
+    sums = np.zeros((bt, nc, 6), np.float32)
+    lone = 0
+    for ch in range(plan.n_chunks):
+        for s in range(plan.chunk_ptr[ch], plan.chunk_ptr[ch + 1]):
+            c0, start, end = _slot_range(plan, ch, s)
+            k = plan.chunk_comp[s]
+            pairs = _bwd_bf16_pairs(start, end)
+            b0 = c0 + np.array([a for a, _ in pairs])
+            b1 = c0 + np.array([a if b is None else b for a, b in pairs])
+            alone = np.array([b is None for _, b in pairs])
+            lone += int(alone.sum())
+            g1 = np.where(alone[None, :], 0.0, g[:, b1]).astype(np.float32)
+            for bins, gl in ((b0, g[:, b0]), (b1, g1)):
+                xb = _bf16((nu[bins][None, :] - C[:, k:k + 1])
+                           * iw[:, k:k + 1])
+                inv = 1.0 / (1.0 + xb * xb)
+                u = _bf16(gl) * inv
+                p = xb * u
+                q = p * inv
+                r = xb * q
+                sums[:, k] += np.stack(
+                    [gl.sum(-1)] + [_f32(a).sum(-1)
+                                    for a in (u, p, q, r, xb * r)], -1)
+    Gk, Su, Sp, Sq, Sr, Ss = np.moveaxis(sums, -1, 0)
+    dx = hb2 * Su - 2 * H * Sq - 2 * hb2 * Sr
+    dxx = hb2 * Sp - 2 * H * Sr - 2 * hb2 * Ss
+    grads = [B * B * Gk + Su + 2 * B * Sp, -iw * dx,
+             np.where(W > 1e-6, -dxx * iw * 0.5, 0), hb2 * Gk + 2 * H * Sp]
+    return (out, grads), lone
+
+
+@pytest.mark.parametrize("sizes", [{}, {"tile": 64, "chunk": 96}],
+                         ids=["kernel-sizes", "small-sizes"])
+@pytest.mark.parametrize("mode", ["segment", "dense"])
+def test_bf16_kernel_replay_matches_plain_bf16(mode, sizes):
+    """The bf16 kernels' traversal (bin pairs, lone bins at a range's odd
+    start or end) computes what the plain bf16 version does, to float32
+    reassociation."""
+    nu, args, segs, g = _segment_case(n=700, ncomp=20)
+    H, C, W, B = args
+    n, nc = nu.shape[0], H.shape[1]
+    if mode == "segment":
+        plan = tk.segment_plan(segs, nc, n, precision="bf16", **sizes)
+    else:
+        plan = tk.LorentzPlan(np.zeros(nc), np.full(nc, n), n,
+                              precision="bf16", **sizes)
+    ranges = [_slot_range(plan, ch, s)[1:] for ch in range(plan.n_chunks)
+              for s in range(plan.chunk_ptr[ch], plan.chunk_ptr[ch + 1])]
+    if mode == "segment":
+        assert any(a % 2 for a, _ in ranges) and any(b % 2 for _, b in ranges)
+    for start, end in ranges:           # each bin of a range exactly once
+        flat = [b for pair in _bwd_bf16_pairs(start, end)
+                for b in pair if b is not None]
+        assert sorted(flat) == list(range(start, end))
+    got, lone = _replay_bf16_kernels(plan, nu, *args, g)
+    assert lone > 0 or mode == "dense"
+    tnu = torch.as_tensor(nu)
+    if mode == "segment":
+        want = _torch_val_grad(lambda *a: tl.sum_lorentzians_segments(
+            tnu, *a, segs, precision="bf16"), args, g)
+    else:
+        want = _torch_val_grad(lambda *a: tl.sum_lorentzians(
+            tnu, *a, precision="bf16"), args, g)
+    _assert_pair(got, want)
+
+
+def test_bf16_plans_and_bounds():
+    """bf16 is a plan property of the segment and dense modes only; its
+    bound counts float32-class operations at 67 TFLOP/s and packed bf16
+    ones at twice that (lorentzian_kernel.FLOPS_BF16)."""
+    plan = tk.dense_plan(64, 3, precision="bf16")
+    assert plan.precision == "bf16" and not plan.windowed
+    assert plan.for_walkers(1).precision == "bf16"
+    assert plan is not tk.dense_plan(64, 3)
+    with pytest.raises(ValueError, match="float32 only"):
+        tk.dense_plan(64, 3, windowed=True, precision="bf16")
+    with pytest.raises(ValueError, match="precision"):
+        tk.LorentzPlan([0], [10], 10, precision="fp8")
+    assert [tk.launch_key(k, p) for k in ("fwd", "bwd")
+            for p in ("f32", "bf16")] == ["fwd", "fwd_bf16", "bwd",
+                                          "bwd_bf16"]
+    assert set(tk.LAUNCHES) == {"fwd", "bwd", "fwd_bf16", "bwd_bf16"}
+    for kind, (n32, n16) in (("fwd", (8, 5)), ("bwd", (16, 7))):
+        ms, by = tk.bound_ms(kind, 768, 54, 40000, 536675, precision="bf16")
+        want = 1e3 * 768 * 536675 * (n32 / 67e12 + n16 / 134e12)
+        assert by == "operations" and ms == pytest.approx(want, rel=1e-12)
+    with pytest.raises(ValueError, match="precision"):
+        tl.segment_values(torch.zeros(8), *(torch.ones(1, 2),) * 4,
+                          (((0, 1), 0, 8),), precision="fp8")

@@ -165,8 +165,10 @@ def test_port_runs_without_jax_or_reference(tmp_path):
     `make-example` to `model-eval` (TOML and .model, an ajAlm file with
     window segments, an ajfit table), a fit with `--ckpt-every` stops after
     Learning and is resumed through its checkpoint, the adaptive ladder
-    runs, and `export`, `stats`, `compare` and `evidence` read the results,
-    with jax and tamcmc_tpu refused."""
+    runs, a bf16 fit runs, `batch` runs a TOML table serially and stacked
+    and a .cfg table with its master and errors files, and `export`,
+    `stats`, `compare` and `evidence` read the results, with jax and
+    tamcmc_tpu refused."""
     env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
     ex, aj = tmp_path / "example", tmp_path / "ajfit"
     few = ["--device", "cpu", "--temps", "2", "--chains", "4", "--burnin",
@@ -178,7 +180,21 @@ def test_port_runs_without_jax_or_reference(tmp_path):
             "model": ["--problem", str(ex / "problem.model"), *few],
             "ajfit": ["--problem", str(aj / "problem.toml"), *few],
             "ladder": ["--demo", *TINY[1:], "--temps", "4", "--chunk", "1",
-                       "--adapt-ladder", "--no-report"]}
+                       "--adapt-ladder", "--no-report"],
+            "bf16": ["--demo", *TINY[1:], "--precision", "bf16",
+                     "--no-report"]}
+    table = tmp_path / "batch" / "presets.toml"
+    table.parent.mkdir()
+    table.write_text("".join(
+        f'[[star]]\ndemo = "single_lorentzian"\nseed = {seed}\n'
+        f'outdir = "s{seed}"\ntemps = 2\nchains = 4\nburnin = 10\n'
+        f'learning = 10\nacquire = 10\nthin = 5\n\n' for seed in (0, 1)))
+    cfg = tmp_path / "cfg"
+    cfg.mkdir()
+    (cfg / "presets.cfg").write_text(
+        f"a {ex / 'problem.toml'} 10 10 10 BLA a temps=2 chains=4 thin=5\n")
+    (cfg / "default.cfg").write_text("[MALA]\nlambda_temp= 1.3\n")
+    (cfg / "errors.cfg").write_text("default_rel 0.02\n")
     long_fit = ["run", "--demo", *TINY[1:], "--chunk", "2", "--ckpt-every",
                 "1", "--no-report", "--outdir", str(tmp_path / "long")]
     fit = str(tmp_path / "long")
@@ -203,15 +219,27 @@ def test_port_runs_without_jax_or_reference(tmp_path):
               str(tmp_path / "evidence.json")],
              ["model-eval", "--problem", str(ex / "problem.toml"), "--device",
               "cpu", "--out", str(tmp_path / "model_eval.txt")],
-             ["list-models"]]
+             ["list-models"],
+             ["batch", "--presets", str(table), "--device", "cpu",
+              "--no-report"],
+             ["batch", "--presets", str(table), "--device", "cpu",
+              "--stacked", "--ckpt-every", "1"],
+             ["batch", "--presets", str(cfg / "presets.cfg"), "--config",
+              str(cfg / "default.cfg"), "--errors", str(cfg / "errors.cfg"),
+              "--device", "cpu", "--no-report"]]
     proc = subprocess.run(
         [sys.executable, "-c", ISOLATED, json.dumps(argvs)],
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "isolated-ok" in proc.stdout
-    assert int(proc.stdout.split("isolated-ok")[1]) >= 47
+    assert int(proc.stdout.split("isolated-ok")[1]) >= 49
     for name in runs:
         assert (tmp_path / name / "A_samples.hdr").exists()
+    for star in ("batch/s0", "batch/s1", "cfg/a"):
+        assert (tmp_path / star / "A_samples.hdr").exists()
+        assert (tmp_path / star / "summary.json").exists()
+    assert (tmp_path / "batch" / "stacked_restore.npz").exists()
+    assert "stacked ensemble: 2 stars" in proc.stdout
     assert np.loadtxt(tmp_path / "model_eval.txt").shape == (2000, 3)
     assert "model_MS_local_Hnlm\n" in proc.stdout
     # the resumed fit: Acquire came from the checkpoint Learning left
