@@ -9,6 +9,7 @@ of tamcmc_tpu/cli.py, with their flags, output text and exit codes).
         [--adapt-ladder] [--resume] [--ckpt-every N] [--report-every N]
         [--no-report] [--max-rows N] [--debug] [--profile]
         [--precision f32|bf16|f64] [--ngrid N] [--n-orders K]
+        [--mesh TxC [--runner gspmd|shardmap] [--distributed]]
     python -m tamcmc_tpu_torch.cli batch --presets TABLE [--config CFG]
         [--errors CFG] [--resume] [--precision f32|bf16] [--stacked]
         [--ckpt-every N] [--device cuda] [--no-report]
@@ -38,10 +39,14 @@ phase's end, and every `--ckpt-every` chunks inside one), per phase
 summary.json and, unless `--no-report`, the matplotlib report.  A killed
 run continues with the same command plus `--resume` and leaves the .bin
 files, the chains.npz arrays and betas.npy byte for byte as an
-uninterrupted run would; the checkpoint records precision, runner, device
-type, chunk, thin, adapt_ladder, temperatures and chains, and a resume that
-differs in one of them exits with an error that names it.  `--precision
-bf16` runs the Lorentzian profile stream in bfloat16 (the kernels' bf16
+uninterrupted run would; the checkpoint records precision, runner, mesh,
+device type, chunk, thin, adapt_ladder, temperatures and chains, and a
+resume that differs in one of them exits with an error that names it.
+`--mesh TxC` runs the fit over T x C processes (temperature shards x walker
+shards, parallel/): without `--distributed` `run` starts them on this
+machine itself; with it, a launcher (torchrun) did.  Rank 0 prints and
+writes the run's files, each rank its shard of the cold rung's samples.
+`--precision bf16` runs the Lorentzian profile stream in bfloat16 (the kernels' bf16
 instantiation on a CUDA device); `--precision f64` runs the whole sampler in
 float64 on `--device cpu` and is refused on a CUDA device.  `batch` runs a
 presets table of stars (TOML `[[star]]` rows or a provisional
@@ -61,6 +66,7 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import os
 import pathlib
 import sys
 import time
@@ -232,6 +238,7 @@ def _build_problem(args, device):
 _PROVENANCE = {
     "precision": "likelihood precisions",
     "runner": "random-number protocols",
+    "mesh": "process layouts (walker sums in another order)",
     "device": "random generators and arithmetic (a CPU and a CUDA generator "
               "are different algorithms)",
     "chunk": "checkpoint and ladder-update boundaries (the continuation "
@@ -244,6 +251,9 @@ _PROVENANCE = {
 }
 # fields no flag sets: the message names what sets them instead
 _NOT_FLAGS = {"n_stars": "stars in the presets table"}
+# fields a checkpoint of an earlier release lacks, and what it meant by them
+# (every run before --mesh was a local one)
+_ABSENT_MEANS = {"mesh": "none"}
 
 
 def _check_resume_provenance(ckpt_path, **expect):
@@ -255,6 +265,8 @@ def _check_resume_provenance(ckpt_path, **expect):
         return
     meta = read_meta(str(ckpt_path))
     for field, current in expect.items():
+        if field not in meta and field in _ABSENT_MEANS:
+            meta[field] = _ABSENT_MEANS[field]
         if field not in meta:
             raise SystemExit(
                 f"refusing to resume: checkpoint {ckpt_path} does not record "
@@ -337,7 +349,8 @@ def _star_records(records, s):
 
 def _run_phases(problem, hp, betas, state, gen, plan, writers, split,
                 save_ckpt, ckpt_every, at=_FRESH, ladder=None, on_chunk=None,
-                around=None, on_phase_end=None):
+                around=None, on_phase_end=None, mesh=None, runner=None,
+                view=None):
     """B -> L -> A from the resume point `at`, for `run` (one writer,
     `split` = _whole) and `batch --stacked` (a writer a star, `split` =
     _star_records).
@@ -349,10 +362,14 @@ def _run_phases(problem, hp, betas, state, gen, plan, writers, split,
     then its checkpoint, then the partial files gone: a kill between any two
     leaves a state that `--resume` continues from byte-equal.  The steps of
     a phase run inside the context `around(phase)`; `on_phase_end(phase,
-    n_steps, state, seconds)` follows each phase.  Returns (state, {phase:
-    host records}, {phase: steps, seconds, cold-rung acceptance (a list of
-    one a star for a stack), steps this leg ran})."""
+    n_steps, state, seconds)` follows each phase.  A mesh run (`mesh`,
+    `runner`: one rank's part) passes `view`, which assembles the whole
+    state from the ranks' blocks (a collective): checkpoints,
+    `on_phase_end` and the printed acceptance see `view(state)`.  Returns
+    (state, {phase: host records}, {phase: steps, seconds, cold-rung
+    acceptance (a list of one a star for a stack), steps this leg ran})."""
     from tamcmc_tpu_torch.sampler.driver import run_phase
+    view = view or (lambda s: s)
     done, mid_phase, mid_emitted = at
     device = problem.nu.device
     results, phases = {}, {}
@@ -362,7 +379,7 @@ def _run_phases(problem, hp, betas, state, gen, plan, writers, split,
         already = mid_emitted if name == mid_phase else 0
         if name == mid_phase:
             for w in writers:
-                w.resume_phase(name, already * w.n_chains)
+                w.resume_phase(name, already * w.walkers_written)
         chunk_no = 0
 
         def chunk_done(o, _n=name):
@@ -377,7 +394,7 @@ def _run_phases(problem, hp, betas, state, gen, plan, writers, split,
             if ckpt_every and chunk_no % ckpt_every == 0:
                 for w in writers:
                     w.save_partial(_n)
-                save_ckpt(s, rng_state, _n,
+                save_ckpt(view(s), rng_state, _n,
                           {"in_progress": 1, "emitted": emitted})
 
         tp = time.perf_counter()
@@ -387,7 +404,7 @@ def _run_phases(problem, hp, betas, state, gen, plan, writers, split,
                     problem, hp, betas, state, gen, n_steps, adapt=adapt,
                     thin=plan.thin, chunk=plan.chunk, on_chunk=chunk_done,
                     on_state=state_done, already_emitted=already,
-                    ladder=ladder)
+                    ladder=ladder, mesh=mesh, runner_kind=runner)
         except BaseException:
             for w in writers:
                 w.abort()          # no .hdr: the phase stays resumable
@@ -396,13 +413,14 @@ def _run_phases(problem, hp, betas, state, gen, plan, writers, split,
             w.finalize_phase(name, keep_partial=True)
         if outs:
             results[name] = outs
-        save_ckpt(state, gen.get_state(), name)
+        whole = view(state)
+        save_ckpt(whole, gen.get_state(), name)
         for w in writers:
             w.discard_partial(name)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         dt = time.perf_counter() - tp
-        acc = state.acc_rate.mean(dim=-1)[..., 0].tolist()  # walker mean
+        acc = whole.acc_rate.mean(dim=-1)[..., 0].tolist()  # walker mean
         phases[name] = {"steps": n_steps, "seconds": dt,
                         "cold_acceptance": acc,
                         # of this leg: fewer after a mid-phase resume
@@ -412,7 +430,7 @@ def _run_phases(problem, hp, betas, state, gen, plan, writers, split,
               f"({n_steps / dt:.1f} it/s), cold acc="
               + ", ".join(f"{a:.3f}" for a in np.atleast_1d(acc)))
         if on_phase_end is not None:
-            on_phase_end(name, n_steps, state, dt)
+            on_phase_end(name, n_steps, whole, dt)
     return state, results, phases
 
 
@@ -431,23 +449,83 @@ def _write_summaries(records, outdirs, names, split, max_rows):
             json.dump(rows, f, indent=1)
 
 
+def _mesh_flags(args):
+    """(n_temp_shards, n_chain_shards) or None, and the runner's name, from
+    --mesh / --runner, with the refusals of the reference's `run`."""
+    spec, runner = getattr(args, "mesh", None), getattr(args, "runner", None)
+    if not spec:
+        if runner:
+            raise SystemExit("--runner selects the sharded execution and "
+                             "requires --mesh TxC; without a mesh the local "
+                             "runner executes")
+        return None, "local"
+    from tamcmc_tpu_torch.parallel.mesh import parse_mesh
+    if getattr(args, "adapt_ladder", False):
+        raise SystemExit("--adapt-ladder is local-runner only (drop --mesh)")
+    shape = parse_mesh(spec)
+    for given, n, what in ((args.temps, shape[0], "temps"),
+                           (args.chains, shape[1], "chains")):
+        if given is not None and given % n:
+            raise SystemExit(f"mesh {shape[0]}x{shape[1]} must divide temps "
+                             f"x chains; --{what} {given} is not a multiple "
+                             f"of {n}")
+    return shape, runner or "gspmd"
+
+
 def cmd_run(args):
+    """`run`: a local fit, or one rank of a mesh fit, or (`--mesh` without
+    `--distributed`) the launcher of a mesh fit's ranks."""
+    precision = getattr(args, "precision", "f32")
+    _refuse_precision_on(args.device, precision)
+    shape, runner = _mesh_flags(args)
+    mesh_label = f"{shape[0]}x{shape[1]}" if shape else "none"
+    ckpt = pathlib.Path(args.outdir) / "restore.npz"
+    if getattr(args, "resume", False):
+        # before anything is built or written
+        _check_resume_provenance(ckpt, precision=precision, runner=runner,
+                                 mesh=mesh_label,
+                                 device=torch.device(args.device).type)
+    distributed = getattr(args, "distributed", False)
+    if shape and shape[0] * shape[1] > 1 and not distributed:
+        from tamcmc_tpu_torch.parallel.distributed import launch_local
+        launch_local(args.argv, shape[0] * shape[1])
+        return {"mesh": mesh_label, "processes": shape[0] * shape[1]}
+    from tamcmc_tpu_torch.parallel import distributed as dist_
+    if distributed:
+        dist_.init_distributed(args.device)
+    world = dist_.world_size()
+    if shape is None and world > 1:
+        raise SystemExit(f"--distributed with {world} processes needs --mesh "
+                         f"TxC with T*C = {world}")
+    if shape is not None and shape[0] * shape[1] != world:
+        raise SystemExit(
+            f"--mesh {mesh_label} needs {shape[0] * shape[1]} processes; "
+            f"this run has {world}" + (
+                " (--distributed found no launcher environment: "
+                "MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK)"
+                if distributed and world == 1 else ""))
+    device = dist_.rank_device(args.device) if world > 1 else _device(args)
+    if dist_.rank() == 0:
+        return _run(args, device, shape, runner, mesh_label)
+    with open(os.devnull, "w") as quiet, contextlib.redirect_stdout(quiet):
+        return _run(args, device, shape, runner, mesh_label)
+
+
+def _run(args, device, shape, runner, mesh_label):
     from tamcmc_tpu_torch.io.checkpoint import save_checkpoint
     from tamcmc_tpu_torch.io.outputs import OutputWriter
+    from tamcmc_tpu_torch.ops.lorentzian_kernel import LAUNCHES
+    from tamcmc_tpu_torch.parallel import distributed as dist_
     from tamcmc_tpu_torch.sampler.mala import init_state
     from tamcmc_tpu_torch.sampler.tempering import make_beta_ladder
     from tamcmc_tpu_torch.utils.metrics import MetricsLogger
 
     precision = getattr(args, "precision", "f32")
-    _refuse_precision_on(args.device, precision)
     outdir = pathlib.Path(args.outdir)
     ckpt = outdir / "restore.npz"
     resume = getattr(args, "resume", False)
-    if resume:
-        # before anything is built or written
-        _check_resume_provenance(ckpt, precision=precision, runner="local",
-                                 device=torch.device(args.device).type)
-    device = _device(args)
+    world, rank = dist_.world_size(), dist_.rank()
+    lead = rank == 0               # prints and writes the run's own files
     debug = getattr(args, "debug", False)
     if debug:
         from tamcmc_tpu_torch.utils.debug import (chunk_finite_report,
@@ -467,16 +545,30 @@ def cmd_run(args):
         problem = problem.astype(torch.float64)
     n_temps = args.temps or meta["n_temps"]
     n_chains = args.chains or meta["n_chains"]
-    provenance = {"precision": precision, "runner": "local",
-                  "device": device.type, "chunk": plan.chunk,
-                  "thin": plan.thin, "adapt_ladder": bool(hp.adapt_ladder),
+    provenance = {"precision": precision, "runner": runner,
+                  "mesh": mesh_label, "device": device.type,
+                  "chunk": plan.chunk, "thin": plan.thin,
+                  "adapt_ladder": bool(hp.adapt_ladder),
                   "n_temps": n_temps, "n_chains": n_chains}
     if resume:
         _check_resume_provenance(ckpt, **provenance)
+    mesh = None
+    if shape:
+        from tamcmc_tpu_torch.parallel.mesh import SamplerMesh
+        from tamcmc_tpu_torch.parallel.sharded import (gather_state,
+                                                       shard_state)
+        if hp.adapt_ladder:
+            raise SystemExit("adapt_ladder is local-runner only (drop "
+                             "--mesh, or the problem file's adapt_ladder)")
+        try:
+            mesh = SamplerMesh(*shape, rank, n_temps, n_chains)
+        except ValueError as e:
+            raise SystemExit(str(e))
 
     outdir.mkdir(parents=True, exist_ok=True)
     betas = make_beta_ladder(n_temps, hp.lambda_temp, device=device)
-    np.save(outdir / "betas.npy", betas.cpu().numpy())   # for `evidence`
+    if lead:
+        np.save(outdir / "betas.npy", betas.cpu().numpy())  # for `evidence`
     ladder = None
     if hp.adapt_ladder:
         # the dynamic ladder (sampler/ladder.py): tuned between the chunks
@@ -488,6 +580,8 @@ def cmd_run(args):
     at = _FRESH
     if resume and ckpt.exists():
         state, gen, cmeta, at = _resume_point(ckpt, device)
+        if mesh is not None:
+            state = shard_state(state, mesh)
         if ladder is not None:
             ladder.update(betas=np.asarray(cmeta["ladder_betas"]),
                           updates=int(cmeta["ladder_updates"]),
@@ -502,16 +596,30 @@ def cmd_run(args):
             from tamcmc_tpu_torch.io.refconfig import scales_from_errors
             init_scales = scales_from_errors(problem, err_table)
         state = init_state(problem, hp, n_temps, n_chains, gen,
-                           init_scales=init_scales)
+                           init_scales=init_scales,
+                           block=mesh and (mesh.tsl, mesh.csl))
 
-    metrics = MetricsLogger(str(outdir / "metrics.jsonl"))
+    metrics = MetricsLogger(str(outdir / "metrics.jsonl"), enabled=lead)
+    n_cards = torch.cuda.device_count() if device.type == "cuda" else 0
     metrics.log("run_start", n_temps=n_temps, n_chains=n_chains,
-                ndim_free=problem.ndim_free, seed=args.seed, runner="local",
+                ndim_free=problem.ndim_free, seed=args.seed, runner=runner,
+                mesh=mesh_label, processes=world, backend=dist_.backend(),
+                backend_rule=(f"nccl when device_count() >= world size, else "
+                              f"gloo: {n_cards} card(s), {world} rank(s)"),
                 precision=precision, device=device.type)
-    writer = OutputWriter(str(outdir), problem.free_names, n_temps, n_chains)
+    if world > 1:
+        print(f"mesh {mesh_label} ({runner} runner): {world} processes, "
+              f"backend {dist_.backend()} ({n_cards} card(s) for {world} "
+              "ranks)")
+    shard = ({"walker_slice": dist_.process_local_slice(n_chains),
+              "shard_tag": f"host{rank}"} if world > 1 else {})
+    writer = OutputWriter(str(outdir), problem.free_names, n_temps, n_chains,
+                          keep_chains=lead, **shard)
     ckpt_every = getattr(args, "ckpt_every", 0) or 0
 
     def save_ckpt(s, rng_state, phase, extra=None):
+        if not lead:             # every rank gathered `s`; one writes it
+            return
         meta_d = {**provenance, **(extra or {})}
         if ladder is not None:
             meta_d.update({f"ladder_{k}": v for k, v in ladder.items()})
@@ -540,7 +648,7 @@ def cmd_run(args):
             if bad:
                 metrics.log("debug_nonfinite", phase=name, **bad)
                 print(f"[debug] non-finite values in chunk: {bad}")
-        if report_every:
+        if report_every and lead:
             report_buf.append(o)
             del report_buf[:-REPORT_BUF_CAP]
             report_chunks += 1
@@ -550,7 +658,7 @@ def cmd_run(args):
     @contextlib.contextmanager
     def around(name):
         report_buf.clear()         # traces must not span phase boundaries
-        if not (getattr(args, "profile", False) and name == "A"):
+        if not (getattr(args, "profile", False) and name == "A" and lead):
             yield
             return
         from torch.profiler import ProfilerActivity, profile
@@ -577,7 +685,14 @@ def cmd_run(args):
     state, results, phases = _run_phases(
         problem, hp, betas, state, gen, plan, [writer], _whole, save_ckpt,
         ckpt_every, at, ladder=ladder, on_chunk=on_chunk, around=around,
-        on_phase_end=log_phase)
+        on_phase_end=log_phase, mesh=mesh, runner=runner,
+        view=(lambda s: gather_state(s, mesh)) if mesh else None)
+    if world > 1:
+        # each rank's device and kernel launches, on rank 0's metrics
+        steps = sum(p["steps_run"] for p in phases.values())
+        for r, info in enumerate(dist_.gather_objects(
+                {"device": str(device), "launches": dict(LAUNCHES)})):
+            metrics.log("rank_end", rank=r, steps=steps, **info)
     if ladder is not None:
         # `evidence` integrates the Acquire logL chains over the final
         # (frozen) ladder: overwrite the initial geometric one
@@ -589,7 +704,7 @@ def cmd_run(args):
     metrics.close()
 
     phase = "A" if "A" in results else (list(results)[-1] if results else None)
-    if phase:
+    if phase and lead:
         if phase == at[1]:
             print(f"note: phase {phase} was resumed; the summary below "
                   "covers the records of this leg only (`stats --outdir "
@@ -605,7 +720,8 @@ def cmd_run(args):
     print(f"total wall time {time.perf_counter() - t0:.1f}s; "
           f"outputs in {outdir}")
     return {"phases": phases, "n_temps": n_temps, "n_chains": n_chains,
-            "thin": plan.thin, "chunk": plan.chunk}
+            "thin": plan.thin, "chunk": plan.chunk, "mesh": mesh_label,
+            "processes": world}
 
 
 def _presets(args):
@@ -1105,6 +1221,28 @@ def _parser() -> argparse.ArgumentParser:
                          "validation mode of --device cpu; refused on a "
                          "CUDA device, whose kernels are float32 and bf16")
     pr.add_argument("--max-rows", type=int, default=40, dest="max_rows")
+    pr.add_argument("--mesh",
+                    help="run the fit over a TEMPSxCHAINS mesh of processes, "
+                         "e.g. 2x1 (temperature shards x walker shards; the "
+                         "mesh must divide --temps x --chains): swaps cross "
+                         "processes on swap steps only, walker means are "
+                         "summed across a row's processes every adapting "
+                         "step.  Without --distributed this command starts "
+                         "the T*C processes itself")
+    pr.add_argument("--runner", choices=("gspmd", "shardmap"),
+                    help="the reference's two names for the sharded runner, "
+                         "kept so that its command lines run; here both run "
+                         "the one torch.distributed runner "
+                         "(parallel/shardmap_runner.py) and the name is "
+                         "recorded in the checkpoint.  Needs --mesh; default "
+                         "gspmd")
+    pr.add_argument("--distributed", action="store_true",
+                    help="a launcher (torchrun) started this process as one "
+                         "rank: join its group from MASTER_ADDR, "
+                         "MASTER_PORT, WORLD_SIZE, RANK, LOCAL_RANK.  "
+                         "Backend nccl when device_count() >= world size, "
+                         "else gloo; rank r computes on cuda:{LOCAL_RANK %% "
+                         "device_count} (or the cpu under --device cpu)")
     pr.set_defaults(fn=cmd_run)
 
     pb = sub.add_parser("batch", help="run a presets table of stars, "
@@ -1219,7 +1357,9 @@ def _parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None):
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = _parser().parse_args(argv)
+    args.argv = argv          # what a mesh run's ranks run again
     return args.fn(args)
 
 

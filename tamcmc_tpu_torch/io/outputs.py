@@ -17,9 +17,13 @@ byte-identical to the uninterrupted run.  The partial npz is written to a
 temporary name and renamed into place, so a kill during the write leaves
 the previous file, never a broken zip.
 
-The .bin handle is a plain file; the reference's optional C++ record writer
-and its per-process shard files (`walker_slice`, `shard_tag`) are not
-written here.  `read_bin_samples` does merge shard files of that layout.
+A run over several processes (parallel/) writes shards: each process's
+writer has a `walker_slice` (its share of the cold rung's walkers, from
+`parallel.distributed.process_local_slice`) and a `shard_tag` ("hostK"), and
+writes {phase}_samples.hostK.bin/.hdr, whose Nchains is the shard's own
+walker count; only one writer (`keep_chains`, process 0) keeps the chain
+diagnostics.  `read_bin_samples` merges the shards in the order of K.  The
+reference's optional C++ record writer is not used here.
 """
 
 from __future__ import annotations
@@ -27,16 +31,27 @@ from __future__ import annotations
 import glob
 import os
 import pathlib
+import re
 import sys
 
 import numpy as np
 
 
+def discard_stale_tmps(path):
+    """Remove the temporary files of `atomic_savez(path)` that a process
+    killed during the write left behind (one process writes a given path)."""
+    path = pathlib.Path(path)
+    for tmp in path.parent.glob(f"{glob.escape(path.name)}.*.tmp"):
+        tmp.unlink(missing_ok=True)
+
+
 def atomic_savez(path, **arrays):
     """np.savez to `path` through a temporary file in the same directory and
     os.replace: a reader, or a process resumed after a kill, sees the old
-    file or the new one, never a half-written zip."""
+    file or the new one, never a half-written zip (and the next write
+    removes the temporary file a killed one left)."""
     path = pathlib.Path(path)
+    discard_stale_tmps(path)
     tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
     with open(tmp, "wb") as f:
         np.savez(f, **arrays)
@@ -44,21 +59,37 @@ def atomic_savez(path, **arrays):
 
 
 class OutputWriter:
-    def __init__(self, outdir: str, param_names, n_temps: int, n_chains: int):
+    def __init__(self, outdir: str, param_names, n_temps: int, n_chains: int,
+                 walker_slice=None, shard_tag: str = "",
+                 keep_chains: bool = True):
         self.outdir = pathlib.Path(outdir)
         self.outdir.mkdir(parents=True, exist_ok=True)
         self.param_names = list(param_names)
         self.n_temps = n_temps
         self.n_chains = n_chains
+        self.walker_slice = walker_slice      # (start, stop) on the C axis
+        self.shard_tag = shard_tag            # "" or "hostK"
+        self.keep_chains = keep_chains
         self._bin_handles = {}
         self._counts = {}
         self._chain_buffers = {}
 
+    @property
+    def walkers_written(self) -> int:
+        """Cold-rung walkers in each of this writer's records."""
+        if self.walker_slice is None:
+            return self.n_chains
+        lo, hi = self.walker_slice
+        return hi - lo
+
+    def _tag(self) -> str:
+        return f".{self.shard_tag}" if self.shard_tag else ""
+
     def _bin_path(self, phase: str) -> pathlib.Path:
-        return self.outdir / f"{phase}_samples.bin"
+        return self.outdir / f"{phase}_samples{self._tag()}.bin"
 
     def _hdr_path(self, phase: str) -> pathlib.Path:
-        return self.outdir / f"{phase}_samples.hdr"
+        return self.outdir / f"{phase}_samples{self._tag()}.hdr"
 
     def _partial_path(self, phase: str) -> pathlib.Path:
         return self.outdir / f"{phase}_chains_partial.npz"
@@ -68,6 +99,9 @@ class OutputWriter:
         """outs: host records of one chunk — theta0 (E, C, Df) plus the
         chain diagnostics (leading emit axis)."""
         theta0 = np.asarray(outs["theta0"], dtype=np.float64)
+        if self.walker_slice is not None:
+            lo, hi = self.walker_slice
+            theta0 = theta0[:, lo:hi]
         E, C, Df = theta0.shape
         f = self._bin_handles.get(phase)
         if f is None:
@@ -76,11 +110,12 @@ class OutputWriter:
             self._chain_buffers[phase] = []
         f.write(theta0.reshape(E * C, Df).astype("<f8").tobytes())
         self._counts[phase] += E * C
-        self._chain_buffers[phase].append(
-            {k: np.asarray(v) for k, v in outs.items() if k != "theta0"})
+        if self.keep_chains:
+            self._chain_buffers[phase].append(
+                {k: np.asarray(v) for k, v in outs.items() if k != "theta0"})
 
-    def _stacked(self, phase: str) -> dict:
-        bufs = self._chain_buffers[phase]
+    @staticmethod
+    def _stack(bufs) -> dict:
         return {k: np.concatenate([b[k] for b in bufs], axis=0)
                 for k in bufs[0]}
 
@@ -91,8 +126,9 @@ class OutputWriter:
         f = self._bin_handles.get(phase)
         if f is not None:
             f.flush()
-        if self._chain_buffers.get(phase):
-            atomic_savez(self._partial_path(phase), **self._stacked(phase),
+        if self.keep_chains and self._chain_buffers.get(phase):
+            atomic_savez(self._partial_path(phase),
+                         **self._stack(self._chain_buffers[phase]),
                          __count__=np.asarray(self._counts[phase]))
 
     def resume_phase(self, phase: str, n_records: int):
@@ -108,7 +144,7 @@ class OutputWriter:
         self._counts[phase] = n_records
         self._chain_buffers[phase] = []
         pp = self._partial_path(phase)
-        if pp.exists():
+        if self.keep_chains and pp.exists():
             z = np.load(pp)
             buf = {k: z[k] for k in z.files if k != "__count__"}
             if buf:
@@ -127,17 +163,22 @@ class OutputWriter:
             h.write("# tamcmc-tpu samples header\n")
             h.write(f"Nvars= {len(self.param_names)}\n")
             h.write(f"Nsamples= {self._counts[phase]}\n")
-            h.write(f"Nchains= {self.n_chains}\n")
+            # a shard's own walkers: each shard reads back as (E, its C, D)
+            h.write(f"Nchains= {self.walkers_written}\n")
             h.write("variable_names= " + " ".join(self.param_names) + "\n")
             h.write("dtype= float64_le\n")
-        stacked = self._stacked(phase)
-        del self._chain_buffers[phase]
-        np.savez_compressed(self.outdir / f"{phase}_chains.npz", **stacked)
+        bufs = self._chain_buffers.pop(phase)
+        if self.keep_chains:
+            np.savez_compressed(self.outdir / f"{phase}_chains.npz",
+                                **self._stack(bufs))
         if not keep_partial:
             self.discard_partial(phase)
 
     def discard_partial(self, phase: str):
+        if not self.keep_chains:     # the writer that keeps them owns them
+            return
         self._partial_path(phase).unlink(missing_ok=True)
+        discard_stale_tmps(self._partial_path(phase))
 
     def abort(self):
         """Close the .bin handles WITHOUT finalizing (no .hdr): a failed run
@@ -170,11 +211,16 @@ def _read_one(bin_path: pathlib.Path, hdr_path: pathlib.Path):
     return raw.reshape(n, nvars), names, int(hdr.get("Nchains", 0))
 
 
+def _host_number(path: str) -> int:
+    """K of a shard file {phase}_samples.hostK.bin."""
+    return int(re.search(r"\.host(\d+)\.bin$", path).group(1))
+
+
 def read_bin_samples(outdir: str, phase: str, with_chains: bool = False):
     """Read back {phase}_samples.bin via its .hdr -> (samples, names), the
-    reference's bin2txt input path.  A multi-process run of the reference
-    leaves per-process shards ({phase}_samples.hostK.bin); they are
-    concatenated in host order.
+    reference's bin2txt input path.  A multi-process run leaves per-process
+    shards ({phase}_samples.hostK.bin); they are concatenated in the order
+    of K as an integer (host10 after host9).
 
     with_chains=True returns samples reshaped to (E, C, D) using the .hdr's
     Nchains (shards concatenate on the walker axis): per-walker chain
@@ -201,7 +247,8 @@ def read_bin_samples(outdir: str, phase: str, with_chains: bool = False):
     if single.exists():
         s, names, nchains = _read_one(single, outdir / f"{phase}_samples.hdr")
         return (_chains(s, nchains), names) if with_chains else (s, names)
-    shards = sorted(glob.glob(str(outdir / f"{phase}_samples.host*.bin")))
+    shards = sorted(glob.glob(str(outdir / f"{phase}_samples.host*.bin")),
+                    key=_host_number)
     if not shards:
         raise FileNotFoundError(f"no {phase}_samples[.host*].bin in {outdir}")
     parts, names = [], None

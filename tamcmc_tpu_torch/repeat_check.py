@@ -28,12 +28,20 @@ import time
 import numpy as np
 
 
+def _bins(a: pathlib.Path, b: pathlib.Path, phase: str) -> list:
+    """The sample files of `phase` in either directory: {phase}_samples.bin,
+    or a multi-process run's shards {phase}_samples.hostK.bin."""
+    found = {f.name for d in (a, b) for f in d.glob(f"{phase}_samples*.bin")}
+    return sorted(found) or [f"{phase}_samples.bin"]
+
+
 def same_outputs(a: pathlib.Path, b: pathlib.Path) -> list:
     """Names of the output files (or arrays in them) of run directories `a`
-    and `b` that differ; betas.npy, the three .bin and every chains.npz
-    array.  A file missing on either side counts as differing."""
+    and `b` that differ; betas.npy, each phase's .bin (or its shards) and
+    every chains.npz array.  A file missing on either side counts as
+    differing."""
     bad = []
-    for name in ("betas.npy", *(f"{p}_samples.bin" for p in "BLA")):
+    for name in ("betas.npy", *(n for p in "BLA" for n in _bins(a, b, p))):
         fa, fb = a / name, b / name
         if not (fa.exists() and fb.exists()) \
                 or fa.read_bytes() != fb.read_bytes():
@@ -52,17 +60,16 @@ def same_outputs(a: pathlib.Path, b: pathlib.Path) -> list:
     return bad
 
 
-def first_difference(a: pathlib.Path, b: pathlib.Path, n_chains: int):
+def first_difference(a: pathlib.Path, b: pathlib.Path):
     """(phase, emit index) of the first cold-rung record that differs."""
+    from tamcmc_tpu_torch.io.outputs import read_bin_samples
     for p in "BLA":
-        ra = np.fromfile(a / f"{p}_samples.bin", dtype="<f8")
-        rb = np.fromfile(b / f"{p}_samples.bin", dtype="<f8")
-        n = min(ra.size, rb.size)
-        diff = np.nonzero(ra[:n] != rb[:n])[0]
-        if diff.size or ra.size != rb.size:
-            n_free = np.load(a / f"{p}_chains.npz")["cov_diag0"].shape[-1]
-            at = int(diff[0]) if diff.size else n
-            return p, at // (n_chains * n_free)
+        ra, rb = (read_bin_samples(str(d), p, with_chains=True)[0]
+                  for d in (a, b))
+        n = min(len(ra), len(rb))
+        diff = np.nonzero((ra[:n] != rb[:n]).reshape(n, -1).any(axis=1))[0]
+        if diff.size or len(ra) != len(rb):
+            return p, int(diff[0]) if diff.size else n
     return None
 
 
@@ -120,8 +127,7 @@ def main(argv=None):
             res = {"repeats": not bad, "differ": bad,
                    "process_seconds": secs}
             if bad:
-                res["first_difference"] = first_difference(
-                    *dirs, n_chains=args.chains)
+                res["first_difference"] = first_difference(*dirs)
                 res["evaluation_repeats"] = step_repeats(
                     demo, args.device, args.temps or 2, args.chains)
             results[demo] = res

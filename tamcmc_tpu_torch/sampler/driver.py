@@ -1,7 +1,8 @@
 """Phase machine (Burn-in -> Learning -> Acquire) and the chunked step loop.
 
-Port of tamcmc_tpu/sampler/driver.py, local runner only (reference
-`MALA::execute` + `main.cpp` phases [U]).  `lax.scan` becomes a Python loop;
+Port of tamcmc_tpu/sampler/driver.py (reference `MALA::execute` +
+`main.cpp` phases [U]).  `mesh=` routes a phase through the multi-process
+runner (parallel/shardmap_runner.py).  `lax.scan` becomes a Python loop;
 the step counter is a host integer, so the swap cadence and parity are
 Python control flow with no device synchronisation.  Records stay on the
 device until the end of a chunk, which copies them to the host in one go.
@@ -46,22 +47,35 @@ def raw_step(problem, hp, betas, state, generator, adapt):
     return state
 
 
-def make_record(state: SamplerState):
+def moments_to_physical(mu0, cov_diag0, u_center, u_scale):
+    """The cold rung's walker-mean moments from u-space to physical units."""
+    return u_center + u_scale * mu0, u_scale**2 * cov_diag0
+
+
+def make_record(state: SamplerState, wreduce=torch.mean, physical=True):
     """One emitted (thinned) record: the cold rung's walkers in physical
     units plus adaptation telemetry (device tensors).  A stacked ensemble's
-    state gives every entry a leading star axis."""
+    state gives every entry a leading star axis.
+
+    wreduce(x, dim) is the reduction over walkers: the mean, or on a rank
+    of a walker-sharded mesh run the shard's sum, with physical=False
+    leaving mu0 and cov_diag0 in u-space until parallel.sharded.
+    gather_records has finished the mean over every shard."""
     uc, us = state.u_center[..., None, :], state.u_scale[..., None, :]
+    mu0 = wreduce(state.mu[..., 0, :, :], -2)                       # (Df,)
+    cov_diag0 = wreduce(torch.diagonal(
+        state.cov[..., 0, :, :, :], dim1=-2, dim2=-1), -2)           # (Df,)
+    if physical:
+        mu0, cov_diag0 = moments_to_physical(mu0, cov_diag0,
+                                             state.u_center, state.u_scale)
     return {
         "theta0": uc + us * state.theta[..., 0, :, :],              # (C, Df)
         "logL": state.logL,                                         # (T, C)
         "logP": state.logP,                                         # (T, C)
         "logP0": state.logP[..., 0, :],                             # (C,)
-        "log_sigma": torch.mean(state.log_sigma, -1),               # (T,)
-        "acc_rate": torch.mean(state.acc_rate, -1),                 # (T,)
-        "mu0": state.u_center + state.u_scale * torch.mean(
-            state.mu[..., 0, :, :], -2),                            # (Df,)
-        "cov_diag0": state.u_scale**2 * torch.mean(torch.diagonal(
-            state.cov[..., 0, :, :, :], dim1=-2, dim2=-1), -2),     # (Df,)
+        "log_sigma": wreduce(state.log_sigma, -1),                  # (T,)
+        "acc_rate": wreduce(state.acc_rate, -1),                    # (T,)
+        "mu0": mu0, "cov_diag0": cov_diag0,
         "swap_att": state.nswap_att,                                # (T,)
         "swap_acc": state.nswap_acc,                                # (T,)
     }
@@ -85,7 +99,8 @@ def resolve_emit_plan(n_steps: int, thin: int, chunk: int):
 def run_phase(problem, hp, betas, state, generator, n_steps, adapt=True,
               thin=1, chunk=200, on_chunk: Optional[Callable] = None,
               on_state: Optional[Callable] = None, already_emitted: int = 0,
-              ladder: Optional[dict] = None):
+              ladder: Optional[dict] = None, mesh=None,
+              runner_kind: Optional[str] = None):
     """Run one phase; returns (state, dict of stacked host outputs).
 
     on_chunk(outputs) is called with the host (numpy) records of each chunk
@@ -107,12 +122,34 @@ def run_phase(problem, hp, betas, state, generator, n_steps, adapt=True,
     `betas`: adapting phases update it between chunks toward uniform pair
     swap acceptance, from the cumulative swap counters of the chunk's last
     record; frozen phases use its betas as they are.
+
+    mesh: a parallel.mesh.SamplerMesh runs the phase on this rank's blocks
+    of the state (parallel/shardmap_runner.py; `state` is the rank's, from
+    parallel.sharded.shard_state; `betas` whole); the records handed to
+    on_chunk and returned are whole on every rank.  runner_kind: the
+    reference's signature ("gspmd" or "shardmap"); both names run the one
+    runner here.  The adaptive ladder is local-runner only.
     """
     n_emit_total, chunk = resolve_emit_plan(n_steps, thin, chunk)
     if already_emitted % chunk != 0:
         raise ValueError(f"already_emitted={already_emitted} is not a "
                          f"multiple of chunk={chunk}; the resumed run would "
                          "not continue the interrupted one")
+    if mesh is not None:
+        from tamcmc_tpu_torch.parallel.shardmap_runner import MeshRunner
+        if ladder is not None:
+            raise ValueError("the adaptive ladder (hp.adapt_ladder) is "
+                             "local-runner only; drop the mesh or the ladder")
+        runner = MeshRunner(problem, hp, betas, mesh, generator, adapt)
+        step, record, collect = runner.step, runner.record, runner.collect
+    else:
+        def step(s):
+            return raw_step(problem, hp, betas, s, generator, adapt)
+
+        def collect(records, _state):
+            return {k: torch.stack([r[k] for r in records]).cpu().numpy()
+                    for k in records[0]}
+        record = make_record
 
     def device_betas():
         return torch.as_tensor(ladder["betas"], dtype=betas.dtype,
@@ -126,10 +163,9 @@ def run_phase(problem, hp, betas, state, generator, n_steps, adapt=True,
         records = []
         for _ in range(chunk):
             for _ in range(thin):
-                state = raw_step(problem, hp, betas, state, generator, adapt)
-            records.append(make_record(state))
-        outs = {k: torch.stack([r[k] for r in records]).cpu().numpy()
-                for k in records[0]}
+                state = step(state)
+            records.append(record(state))
+        outs = collect(records, state)
         emitted += chunk
         if ladder is not None and adapt:
             from tamcmc_tpu_torch.sampler.ladder import update_ladder

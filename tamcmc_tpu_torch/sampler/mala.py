@@ -52,7 +52,10 @@ def _per_walker(v):
 def default_init_scales(problem) -> np.ndarray:
     """Per-free-parameter step scales from the prior table: Gaussian
     sigma/10; uniform-like range/100; Jeffreys max/100; else |p0|/100.
-    Computed in params0's dtype (float32), as the reference does."""
+    Computed in params0's dtype (float32), as the reference does.  An
+    analytic target without a prior table gets 0.1."""
+    if getattr(problem, "priors", None) is None:
+        return np.full(problem.ndim_free, 0.1)
     kinds = np.asarray(problem.priors.kinds)
     hyp = np.asarray(problem.priors.hypers)
     p0 = problem.params0.detach().cpu().numpy()
@@ -71,19 +74,36 @@ def default_init_scales(problem) -> np.ndarray:
 
 def init_state(problem: Problem, hp: MALAHyper, n_temps: int, n_chains: int,
                generator: torch.Generator, init_scales=None,
-               jitter: float = 1e-4) -> SamplerState:
+               jitter: float = 1e-4, block=None) -> SamplerState:
     """All walkers at params0 (+ jitter), Sigma = identity in u-space
-    (u_scale = init_scales, u_center = params0's free part)."""
+    (u_scale = init_scales, u_center = params0's free part).  A problem
+    without a prior table (sampler/analytic.py) keeps the identity map
+    (u_center 0, u_scale 1) and starts Sigma at diag(init_scales^2), as the
+    reference does.
+
+    block: (rung slice, walker slice) of one rank of a mesh run: the jitter
+    is drawn for all (T, C) walkers, as the local run draws it, and only the
+    block's walkers are kept and evaluated (mesh.STATE_SPLIT's layout)."""
     Df = problem.ndim_free
     x0 = problem.extract(problem.params0)
     dt, dev = x0.dtype, x0.device
     if init_scales is None:
         init_scales = default_init_scales(problem)
-    u_scale = torch.as_tensor(np.asarray(init_scales), dtype=dt, device=dev)
-    u_center = x0
-    scales = torch.ones(Df, dtype=dt, device=dev)      # u-space
-    TC = (n_temps, n_chains)
-    noise = torch.randn(TC + (Df,), generator=generator, dtype=dt, device=dev)
+    phys = torch.as_tensor(np.asarray(init_scales), dtype=dt, device=dev)
+    if getattr(problem, "priors", None) is None:
+        u_scale = torch.ones(Df, dtype=dt, device=dev)
+        u_center = torch.zeros_like(x0)
+        scales = phys                                   # u-space
+    else:
+        u_scale = phys
+        u_center = x0
+        scales = torch.ones(Df, dtype=dt, device=dev)  # u-space
+    noise = torch.randn((n_temps, n_chains, Df), generator=generator,
+                        dtype=dt, device=dev)
+    if block is not None:
+        noise = noise[block].contiguous()
+    TC = tuple(noise.shape[:2])
+    n_temps = TC[0]
     theta0 = ((x0 - u_center) / u_scale).expand(TC + (Df,)) \
         + jitter * scales * noise
     (logL, logP), (gL, gP) = problem.batched_logparts_and_grad(
@@ -110,14 +130,25 @@ def init_state(problem: Problem, hp: MALAHyper, n_temps: int, n_chains: int,
 
 def mala_step(problem: Problem, hp: MALAHyper, betas, state: SamplerState,
               generator: torch.Generator = None, adapt: bool = True,
-              draws=None) -> SamplerState:
+              draws=None, axis_reduce=None) -> SamplerState:
     """One batched MALA(+adaptation) step for all (T, C) walkers.
 
     betas: (T,) inverse temperatures.  draws: optional (xi (T,C,Df) normal,
     u_acc (T,C) uniform; (S, T, C, ...) for a stacked ensemble) used
     instead of drawing from `generator` (the reference's hook; parity tests
-    feed both packages the same numbers)."""
+    feed both packages the same numbers).
+
+    axis_reduce: optional fn(x, axis, keepdims=False) replacing every mean
+    over the walker axis (the ensemble moments and the acceptance count).
+    The multi-process runner (parallel/shardmap_runner.py) passes one that
+    sums its shard's walkers across the ranks of a temperature row and
+    divides by the global C; it also resolves hp's covariance estimator from
+    that global C, so that a walker-sharded run does not switch estimator.
+    """
     C, Df = state.theta.shape[-2:]
+    cmean = axis_reduce if axis_reduce is not None else (
+        lambda x, axis, keepdims=False: torch.mean(x, dim=axis,
+                                                   keepdim=keepdims))
     dt, dev = state.theta.dtype, state.theta.device
     u_center, u_scale = _per_walker(state.u_center), _per_walker(state.u_scale)
     sigma = torch.exp(state.log_sigma)                       # (T, C)
@@ -179,11 +210,11 @@ def mala_step(problem: Problem, hp: MALAHyper, betas, state: SamplerState,
         gamma = hp.gain_c0 / (hp.gain_k0 + k) ** hp.gain_alpha
         if hp.resolved_cov_estimator(C, Df) == "ensemble":
             # pooled cross-walker moments per temperature
-            mean_c = torch.mean(theta, dim=-2, keepdim=True)  # (T, 1, Df)
+            mean_c = cmean(theta, -2, keepdims=True)          # (T, 1, Df)
             mu = state.mu + gamma * (mean_c - state.mu)
             dev_ = theta - mu
-            emp = torch.mean(dev_[..., :, None] * dev_[..., None, :],
-                             dim=-3, keepdim=True)
+            emp = cmean(dev_[..., :, None] * dev_[..., None, :], -3,
+                        keepdims=True)
             cov = state.cov + gamma * (emp - state.cov)
         else:
             # per-walker expanding-window moments (1/k gain)
@@ -216,5 +247,5 @@ def mala_step(problem: Problem, hp: MALAHyper, betas, state: SamplerState,
     return state.replace(
         theta=theta, logL=logL, logP=logP, gradL=gradL, gradP=gradP,
         mu=mu, cov=cov, chol=chol, ichol=ichol, log_sigma=log_sigma,
-        step=step, naccept=state.naccept + torch.mean(accf, dim=-1),
+        step=step, naccept=state.naccept + cmean(accf, -1),
         nprop=state.nprop + 1.0, acc_rate=acc_rate)

@@ -199,3 +199,20 @@ def test_hdr_without_nchains_reads_as_one_pseudo_chain(tmp_path, capsys):
     assert "no usable Nchains" in capsys.readouterr().err
     want, _ = j_out.read_bin_samples(str(tmp_path), "A", with_chains=True)
     assert got.shape == want.shape == (3 * C, 1, DF)
+
+
+def test_a_write_removes_what_a_killed_write_left(tmp_path):
+    """A process killed inside atomic_savez leaves `<name>.<pid>.tmp`; the
+    next write of that file, or the phase's end, removes it."""
+    target = tmp_path / "L_chains_partial.npz"
+    stale = tmp_path / "L_chains_partial.npz.4617.tmp"
+    stale.write_bytes(b"torn")
+    other = tmp_path / "restore.npz.4617.tmp"
+    other.write_bytes(b"torn")
+    t_out.atomic_savez(target, a=np.arange(3))
+    assert not stale.exists() and other.exists()
+    assert np.array_equal(np.load(target)["a"], np.arange(3))
+    stale.write_bytes(b"torn")
+    w = t_out.OutputWriter(str(tmp_path), ["x"], 1, 1)
+    w.discard_partial("L")
+    assert not stale.exists() and not target.exists() and other.exists()

@@ -150,6 +150,21 @@ ISOLATED = textwrap.dedent("""
                                                   "tamcmc_tpu_torch.")]
     for m in mods:
         importlib.import_module(m)
+    assert {"tamcmc_tpu_torch.parallel.mesh",
+            "tamcmc_tpu_torch.parallel.distributed",
+            "tamcmc_tpu_torch.parallel.sharded",
+            "tamcmc_tpu_torch.parallel.shardmap_runner",
+            "tamcmc_tpu_torch.sampler.analytic"} <= set(mods), mods
+    from tamcmc_tpu_torch.sampler.analytic import std_gaussian
+    from tamcmc_tpu_torch.sampler.driver import run_phase
+    from tamcmc_tpu_torch.sampler.mala import init_state
+    from tamcmc_tpu_torch.sampler.state import MALAHyper
+    from tamcmc_tpu_torch.sampler.tempering import make_beta_ladder
+    from tamcmc_tpu_torch.parallel.mesh import SamplerMesh
+    g = torch.Generator().manual_seed(0)
+    st = init_state(std_gaussian(2), MALAHyper(), 2, 4, g)
+    run_phase(std_gaussian(2), MALAHyper(), make_beta_ladder(2, 1.5), st, g,
+              10, mesh=SamplerMesh(1, 1, 0, 2, 4))
     from tamcmc_tpu_torch import cli
     for argv in json.loads(sys.argv[1]):
         cli.main(argv)
@@ -165,10 +180,11 @@ def test_port_runs_without_jax_or_reference(tmp_path):
     `make-example` to `model-eval` (TOML and .model, an ajAlm file with
     window segments, an ajfit table), a fit with `--ckpt-every` stops after
     Learning and is resumed through its checkpoint, the adaptive ladder
-    runs, a bf16 fit runs, `batch` runs a TOML table serially and stacked
-    and a .cfg table with its master and errors files, and `export`,
-    `stats`, `compare` and `evidence` read the results, with jax and
-    tamcmc_tpu refused."""
+    runs, a bf16 fit runs, a mesh fit runs in this process (1x1) and over
+    two processes (2x1), the analytic target runs through the mesh runner,
+    `batch` runs a TOML table serially and stacked and a .cfg table with
+    its master and errors files, and `export`, `stats`, `compare` and
+    `evidence` read the results, with jax and tamcmc_tpu refused."""
     env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
     ex, aj = tmp_path / "example", tmp_path / "ajfit"
     few = ["--device", "cpu", "--temps", "2", "--chains", "4", "--burnin",
@@ -182,7 +198,11 @@ def test_port_runs_without_jax_or_reference(tmp_path):
             "ladder": ["--demo", *TINY[1:], "--temps", "4", "--chunk", "1",
                        "--adapt-ladder", "--no-report"],
             "bf16": ["--demo", *TINY[1:], "--precision", "bf16",
-                     "--no-report"]}
+                     "--no-report"],
+            "mesh1x1": ["--demo", *TINY[1:], "--mesh", "1x1",
+                        "--no-report"],
+            "mesh2x1": ["--demo", *TINY[1:], "--mesh", "2x1",
+                        "--no-report"]}
     table = tmp_path / "batch" / "presets.toml"
     table.parent.mkdir()
     table.write_text("".join(
@@ -232,9 +252,13 @@ def test_port_runs_without_jax_or_reference(tmp_path):
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "isolated-ok" in proc.stdout
-    assert int(proc.stdout.split("isolated-ok")[1]) >= 49
+    assert int(proc.stdout.split("isolated-ok")[1]) >= 55
     for name in runs:
-        assert (tmp_path / name / "A_samples.hdr").exists()
+        if name != "mesh2x1":
+            assert (tmp_path / name / "A_samples.hdr").exists(), name
+    for k in (0, 1):
+        assert (tmp_path / "mesh2x1" / f"A_samples.host{k}.hdr").exists()
+    assert not (tmp_path / "mesh2x1" / "A_samples.hdr").exists()
     for star in ("batch/s0", "batch/s1", "cfg/a"):
         assert (tmp_path / star / "A_samples.hdr").exists()
         assert (tmp_path / star / "summary.json").exists()
