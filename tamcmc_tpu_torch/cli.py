@@ -357,10 +357,13 @@ def _run_phases(problem, hp, betas, state, gen, plan, writers, split,
 
     Each chunk's records go to the writers, star s's through `split(records,
     s)`, then to `on_chunk(phase, records)`.  Every `ckpt_every` chunks the
-    writers save their partial files and `save_ckpt(state, rng_state, phase,
-    extra)` writes a mid-phase checkpoint.  A phase ends with its files,
+    writers save their partial files and then `save_ckpt(state, rng_state,
+    phase, extra)` writes a mid-phase checkpoint: the .bin holds at least
+    what the checkpoint claims, and a resume cuts the files back to the
+    checkpoint (`OutputWriter.resume_phase`).  A phase ends with its files,
     then its checkpoint, then the partial files gone: a kill between any two
-    leaves a state that `--resume` continues from byte-equal.  The steps of
+    leaves a state that `--resume` continues from byte-equal (a finished
+    phase's partial file that a kill left is removed on resume).  The steps of
     a phase run inside the context `around(phase)`; `on_phase_end(phase,
     n_steps, state, seconds)` follows each phase.  A mesh run (`mesh`,
     `runner`: one rank's part) passes `view`, which assembles the whole
@@ -373,6 +376,9 @@ def _run_phases(problem, hp, betas, state, gen, plan, writers, split,
     done, mid_phase, mid_emitted = at
     device = problem.nu.device
     results, phases = {}, {}
+    for name in done:
+        for w in writers:
+            w.discard_partial(name)
     for name, n_steps, adapt in plan.phases():
         if n_steps <= 0 or name in done:
             continue

@@ -3,14 +3,31 @@ readers behind `Data_Nd`, `data.h`, `string_handler.cpp` [U]).
 
 Format: ASCII, '#', '!' or '*' comment lines, two or three
 whitespace-separated columns: frequency [uHz], power [ppm^2/uHz] (, sigma).
-npz is also supported for fast round-trips.  Host-side numpy; the reference
-tries its C++ table reader first and falls back to numpy, the port has the
-numpy reader only.
+npz is also supported for fast round-trips.  An ASCII file is parsed by
+io/native.py's `native_read_table` (a `strtod` loop in C++; no fallback);
+`read_table_plain` is the plain Python version.  Both round correctly, so
+they give the same float64 bits (`make-example` writes the grid column in
+float64, and the window plan is built from those exact values).
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from tamcmc_tpu_torch.io.native import native_read_table
+
+
+def read_table_plain(path) -> np.ndarray:
+    """The plain version of `native_read_table`: Python's `float` on every
+    whitespace-separated field of each non-comment line."""
+    rows = []
+    with open(path) as f:
+        for line in f:
+            t = line.strip()
+            if not t or t[0] in "#!*":
+                continue
+            rows.append([float(v) for v in t.split()])
+    return np.asarray(rows, dtype=np.float64)
 
 
 def read_spectrum(path: str):
@@ -22,14 +39,7 @@ def read_spectrum(path: str):
         if "sigma" in z:
             out["sigma"] = z["sigma"]
         return out
-    rows = []
-    with open(p) as f:
-        for line in f:
-            t = line.strip()
-            if not t or t[0] in "#!*":
-                continue
-            rows.append([float(v) for v in t.split()])
-    arr = np.asarray(rows, dtype=np.float64)
+    arr = native_read_table(p)
     if arr.ndim != 2 or arr.shape[1] < 2:
         raise ValueError(f"{path}: expected >=2 columns, got shape {arr.shape}")
     out = {"nu": arr[:, 0], "power": arr[:, 1]}

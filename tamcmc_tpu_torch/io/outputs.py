@@ -8,11 +8,19 @@ the other's writer.
   {phase}_chains.npz   logL/logP (emit, T, C), logP0, log_sigma, acc_rate,
                        mu0, cov_diag0, swap_att/swap_acc (cumulative)
 
-Mid-phase resume: `save_partial` flushes the .bin and persists the in-memory
-chain buffers as {phase}_chains_partial.npz; `resume_phase` truncates the
-.bin to the checkpointed record count (a killed process can leave whole or
-torn records past the checkpoint) and reloads the buffers.  Together with
-the sampler checkpoint taken at the same chunk boundary the continuation is
+A fresh phase's .bin goes through io/native.py's NativeRecordWriter (a
+background thread writes while the sampler steps); a resumed phase appends
+through `PlainRecordWriter`, a plain file handle, which is also the plain
+version the tests hold the native file to byte for byte.
+
+Mid-phase resume: `save_partial` flushes the .bin (the native writer's
+barrier) and persists the in-memory chain buffers as
+{phase}_chains_partial.npz with their record count; the caller then writes
+the sampler checkpoint.  A kill between the two leaves a partial file newer
+than the checkpoint, so `resume_phase` cuts both the .bin (a killed process
+can also leave whole or torn records past the checkpoint) and the reloaded
+buffers to the checkpoint's record count.  Together with the sampler
+checkpoint taken at the same chunk boundary the continuation is
 byte-identical to the uninterrupted run.  The partial npz is written to a
 temporary name and renamed into place, so a kill during the write leaves
 the previous file, never a broken zip.
@@ -22,8 +30,7 @@ writer has a `walker_slice` (its share of the cold rung's walkers, from
 `parallel.distributed.process_local_slice`) and a `shard_tag` ("hostK"), and
 writes {phase}_samples.hostK.bin/.hdr, whose Nchains is the shard's own
 walker count; only one writer (`keep_chains`, process 0) keeps the chain
-diagnostics.  `read_bin_samples` merges the shards in the order of K.  The
-reference's optional C++ record writer is not used here.
+diagnostics.  `read_bin_samples` merges the shards in the order of K.
 """
 
 from __future__ import annotations
@@ -35,6 +42,28 @@ import re
 import sys
 
 import numpy as np
+
+from tamcmc_tpu_torch.io.native import NativeRecordWriter
+
+
+class PlainRecordWriter:
+    """Records of `nvars` float64 values through a Python file handle:
+    `append=True` continues an existing file (a resumed phase), else the
+    file is truncated.  NativeRecordWriter's interface, written
+    synchronously."""
+
+    def __init__(self, path, nvars: int, append: bool = False):
+        self._f = open(path, "ab" if append else "wb")
+        self.nvars = nvars
+
+    def append(self, records: np.ndarray):
+        self._f.write(np.asarray(records).astype("<f8").tobytes())
+
+    def flush(self):
+        self._f.flush()
+
+    def close(self):
+        self._f.close()
 
 
 def discard_stale_tmps(path):
@@ -59,9 +88,12 @@ def atomic_savez(path, **arrays):
 
 
 class OutputWriter:
+    """`native=False` writes fresh phases through PlainRecordWriter: the
+    plain version, for the tests and the timing that compare the two."""
+
     def __init__(self, outdir: str, param_names, n_temps: int, n_chains: int,
                  walker_slice=None, shard_tag: str = "",
-                 keep_chains: bool = True):
+                 keep_chains: bool = True, native: bool = True):
         self.outdir = pathlib.Path(outdir)
         self.outdir.mkdir(parents=True, exist_ok=True)
         self.param_names = list(param_names)
@@ -70,6 +102,7 @@ class OutputWriter:
         self.walker_slice = walker_slice      # (start, stop) on the C axis
         self.shard_tag = shard_tag            # "" or "hostK"
         self.keep_chains = keep_chains
+        self.native = native
         self._bin_handles = {}
         self._counts = {}
         self._chain_buffers = {}
@@ -105,10 +138,13 @@ class OutputWriter:
         E, C, Df = theta0.shape
         f = self._bin_handles.get(phase)
         if f is None:
-            f = self._bin_handles[phase] = open(self._bin_path(phase), "wb")
+            path = self._bin_path(phase)
+            f = self._bin_handles[phase] = (
+                NativeRecordWriter(path, Df) if self.native
+                else PlainRecordWriter(path, Df))
             self._counts[phase] = 0
             self._chain_buffers[phase] = []
-        f.write(theta0.reshape(E * C, Df).astype("<f8").tobytes())
+        f.append(theta0.reshape(E * C, Df))
         self._counts[phase] += E * C
         if self.keep_chains:
             self._chain_buffers[phase].append(
@@ -121,8 +157,9 @@ class OutputWriter:
 
     # --- mid-phase checkpoint support ---
     def save_partial(self, phase: str):
-        """Flush the .bin and persist the chain buffers; pairs with the
-        sampler checkpoint taken at the same chunk boundary."""
+        """Flush the .bin and persist the chain buffers with their record
+        count; pairs with the sampler checkpoint that the caller writes next
+        (the .bin must hold at least what that checkpoint claims)."""
         f = self._bin_handles.get(phase)
         if f is not None:
             f.flush()
@@ -132,23 +169,35 @@ class OutputWriter:
                          __count__=np.asarray(self._counts[phase]))
 
     def resume_phase(self, phase: str, n_records: int):
-        """Re-open a partially written phase at exactly n_records records,
-        truncating whatever a kill left past the checkpoint."""
+        """Re-open a partially written phase at exactly n_records records:
+        the .bin truncated and the partial chain buffers cut to the emits
+        of those records.  A kill after `save_partial` and before its
+        checkpoint leaves more in both than the checkpoint covers; fewer
+        records in the partial file than the checkpoint claims means a
+        damaged run directory, and raises before any file is touched."""
         Df = len(self.param_names)
         path = self._bin_path(phase)
         if not path.exists():
             raise FileNotFoundError(f"cannot resume: {path} missing")
+        bufs = []
+        if self.keep_chains and n_records:
+            pp = self._partial_path(phase)
+            z = np.load(pp) if pp.exists() else {"__count__": 0}
+            if int(z["__count__"]) < n_records:
+                raise ValueError(
+                    f"cannot resume: {pp.name} holds {int(z['__count__'])} "
+                    f"records and the checkpoint claims {n_records}; the "
+                    "run directory is damaged (start the run in a fresh "
+                    "outdir)")
+            emits = n_records // self.walkers_written
+            bufs.append({k: z[k][:emits] for k in z.files
+                         if k != "__count__"})
         with open(path, "rb+") as f:
             f.truncate(n_records * Df * 8)
-        self._bin_handles[phase] = open(path, "ab")
+        # the native writer owns a file it opens and truncates: append here
+        self._bin_handles[phase] = PlainRecordWriter(path, Df, append=True)
         self._counts[phase] = n_records
-        self._chain_buffers[phase] = []
-        pp = self._partial_path(phase)
-        if self.keep_chains and pp.exists():
-            z = np.load(pp)
-            buf = {k: z[k] for k in z.files if k != "__count__"}
-            if buf:
-                self._chain_buffers[phase].append(buf)
+        self._chain_buffers[phase] = bufs
 
     def finalize_phase(self, phase: str, keep_partial: bool = False):
         """Close the phase's .bin, write its .hdr and chains.npz.  With
@@ -181,7 +230,7 @@ class OutputWriter:
         discard_stale_tmps(self._partial_path(phase))
 
     def abort(self):
-        """Close the .bin handles WITHOUT finalizing (no .hdr): a failed run
+        """Close the .bin writers WITHOUT finalizing (no .hdr): a failed run
         leaves the interrupted phase as a killed process would after its
         last flush, and `resume_phase` truncates to the checkpoint."""
         for f in self._bin_handles.values():

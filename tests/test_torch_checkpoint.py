@@ -15,6 +15,7 @@ import jax.numpy as jnp
 from tamcmc_tpu import cli as j_cli
 from tamcmc_tpu.demos import make_demo as j_make_demo
 from tamcmc_tpu.io import checkpoint as j_ckpt
+from tamcmc_tpu.io import outputs as j_outputs
 from tamcmc_tpu.sampler.mala import init_state as j_init_state
 from tamcmc_tpu.sampler.mala import mala_step as j_mala_step
 from tamcmc_tpu_torch import cli, convert
@@ -335,6 +336,41 @@ def test_the_reference_gate_accepts_what_the_port_refuses(tmp_path, capsys):
     assert meta == {"meta_precision", "meta_runner"}
     j_cli.main([*base, "--chunk", "4", "--adapt-ladder", "--resume"])
     assert "resumed from" in capsys.readouterr().out
+
+
+def test_the_reference_resume_keeps_stale_chain_rows(tmp_path):
+    """Known defect (h) of the reference, not copied: its
+    `OutputWriter.resume_phase` truncates the .bin to the checkpoint's
+    records but loads the whole partial chain file, which `save_partial`
+    wrote one checkpoint interval later when a kill fell between the two;
+    the resumed chains.npz then holds those rows twice.  The port's cuts
+    the chain buffers to the checkpoint as well."""
+    E, C, T, Df = 2, 3, 2, 2
+
+    def chunk(k):
+        v = np.arange(k * E, (k + 1) * E, dtype=np.float64)
+        return {"theta0": np.broadcast_to(v[:, None, None], (E, C, Df)).copy(),
+                "logL": np.broadcast_to(v[:, None, None], (E, T, C)).copy()}
+
+    rows = {}
+    for name, writer in (("ref", j_outputs.OutputWriter),
+                         ("port", OutputWriter)):
+        d = tmp_path / name
+        w = writer(str(d), ["a", "b"], T, C)
+        for k in range(3):          # the third save_partial has no checkpoint
+            w.append_chunk("L", chunk(k))
+            w.save_partial("L")
+        w.abort()
+        r = writer(str(d), ["a", "b"], T, C)
+        r.resume_phase("L", 2 * E * C)          # the checkpoint: two chunks
+        r.append_chunk("L", chunk(2))
+        r.close()
+        rows[name] = np.load(d / "L_chains.npz")["logL"][:, 0, 0]
+        assert np.array_equal(
+            np.fromfile(d / "L_samples.bin", "<f8").reshape(-1, C, Df)[:, 0, 0],
+            np.arange(3 * E))                    # the .bin is cut in both
+    assert np.array_equal(rows["port"], np.arange(3 * E))
+    assert np.array_equal(rows["ref"], [0, 1, 2, 3, 4, 5, 4, 5])
 
 
 # ---------------------------------------------------------------------------

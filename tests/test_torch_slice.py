@@ -150,7 +150,10 @@ ISOLATED = textwrap.dedent("""
                                                   "tamcmc_tpu_torch.")]
     for m in mods:
         importlib.import_module(m)
-    assert {"tamcmc_tpu_torch.parallel.mesh",
+    assert {"tamcmc_tpu_torch.io.native",
+            "tamcmc_tpu_torch.scale_procs",
+            "tamcmc_tpu_torch.ab_ladder",
+            "tamcmc_tpu_torch.parallel.mesh",
             "tamcmc_tpu_torch.parallel.distributed",
             "tamcmc_tpu_torch.parallel.sharded",
             "tamcmc_tpu_torch.parallel.shardmap_runner",
@@ -170,6 +173,10 @@ ISOLATED = textwrap.dedent("""
         cli.main(argv)
     leaked = sorted(k for k in sys.modules if k.split(".")[0] in BLOCKED)
     assert not leaked, leaked
+    # the records went through the port's own recordio, not native/'s
+    maps = open("/proc/self/maps").read()
+    assert "build/tamcmc_tpu_torch/recordio-" in maps
+    assert "librecordio" not in maps
     print("isolated-ok", len(mods))
 """)
 
