@@ -453,17 +453,18 @@ def _f32(t):
 
 def _bwd_bf16_pairs(start, end, lanes=32):
     """The bin pairs (b0, b1) one warp of the bf16 backward forms over
-    [start, end) of a staged chunk (csrc/lorentzian.cu bwd_range): a lane
-    each for the up to three bins before the first 16-byte boundary and
-    after the last, alone in a pair (b1 None: its partner lane has g = 0),
-    and every float4 group in between as two pairs."""
-    a_lo = min((start + 3) & ~3, end)
-    a_hi = max(end & ~3, a_lo)
-    pairs = [(n, None) for n in range(start, start + lanes) if n < a_lo]
-    for lane in range(lanes):
-        for i in range(a_lo + 4 * lane, a_hi, 4 * lanes):
-            pairs += [(i, i + 1), (i + 2, i + 3)]
-    pairs += [(n, None) for n in range(a_hi, a_hi + lanes) if n < end]
+    [start, end) of a staged chunk (lorentzian_kernel.bwd_bf16_steps, the
+    traversal of csrc/lorentzian.cu bwd_range_bf16): a lane each for the up
+    to three bins before the first 16-byte boundary and after the last,
+    alone in a pair (b1 None: its partner lane has g = 0), and every float4
+    group in between as two pairs."""
+    pairs = []
+    for step in tk.bwd_bf16_steps(start, end, lanes):
+        for n0, n1, n2, n3 in step:
+            if n0 is not None:
+                pairs.append((n0, n1))
+            if n2 is not None:
+                pairs.append((n2, n3))
     return pairs
 
 
@@ -476,32 +477,42 @@ def _bf16_profile(x, h, hb2):
 
 def _replay_bf16_kernels(plan, nu, H, C, W, B, g):
     """numpy replay of the bf16 instantiation over a (segment or dense)
-    plan, each bf16 op rounded as the plain version rounds it.  Forward: as
-    _replay_kernels, the profile in bf16, h b^2 and the sums float32 (a
-    thread's bin pairs are masked per lane, so a pair is never split).
-    Backward: per slot the pairs of _bwd_bf16_pairs, a lone bin's partner
-    lane at g = 0, each of u, p, q, r, s widened before its float32 sum;
-    the sum of g and the closed form float32."""
+    plan, each bf16 op rounded as the plain version rounds it.  Forward:
+    per tile the component pairs of lorentzian_kernel.fwd_bf16_pairs, the
+    profile in bf16, each pair's two values added into the bin's float32
+    sum (the tensor cores' diagonal sum), h b^2 float32 (once per walker
+    for a pair of covering components, per bin in range for a masked one),
+    the lone component of an odd chunk alone.  Backward: per slot
+    the warp steps of bwd_bf16_steps, a lone bin's partner lane at g = 0,
+    u, p, q, r, s of a step's lanes widened and summed in float32 before
+    they join the slot's sums (the tensor cores' row sums); the sum of g
+    and the closed form float32."""
     bt, nc = H.shape
     n_bins = nu.shape[0]
     iw = (2.0 / np.maximum(W, 1e-6)).astype(np.float32)
     hb2 = (2 * H * B).astype(np.float32)
+    hbb = (H * B * B).astype(np.float32)
     out = np.zeros((bt, n_bins), np.float32)
     for t in range(plan.n_tiles):
         n = np.arange(t * plan.tile, min((t + 1) * plan.tile, n_bins))
         acc = np.zeros((bt, n.shape[0]), np.float32)
         cst = np.zeros((bt, 1), np.float32)
-        for p in range(plan.tile_ptr[t], plan.tile_ptr[t + 1]):
-            k = plan.tile_comp[p]
-            x = (nu[n][None, :] - C[:, k:k + 1]) * iw[:, k:k + 1]
-            v = _bf16_profile(x, H[:, k:k + 1], hb2[:, k:k + 1])
-            hbb = (H[:, k:k + 1] * B[:, k:k + 1] * B[:, k:k + 1])
-            if p < plan.tile_full[t]:
-                acc += v
-                cst += hbb
-            else:
-                keep = (n >= plan.comp_lo[k]) & (n < plan.comp_hi[k])
-                acc += np.where(keep, v + hbb, 0)
+        for pair in tk.fwd_bf16_pairs(plan, t):
+            k0, k1, masked = pair
+            v = np.zeros((bt, n.shape[0]), np.float32)
+            for k in (k0, k1):
+                if k < 0:                   # no partner: a lone component
+                    continue
+                x = (nu[n][None, :] - C[:, k:k + 1]) * iw[:, k:k + 1]
+                prof = _bf16_profile(x, H[:, k:k + 1], hb2[:, k:k + 1])
+                if masked:
+                    keep = (n >= plan.comp_lo[k]) & (n < plan.comp_hi[k])
+                    acc += np.where(keep, hbb[:, k:k + 1], 0)
+                    prof = np.where(keep, prof, 0)
+                else:
+                    cst += hbb[:, k:k + 1]
+                v += prof
+            acc += v
         out[:, n] = acc + cst
     sums = np.zeros((bt, nc, 6), np.float32)
     lone = 0
@@ -509,13 +520,15 @@ def _replay_bf16_kernels(plan, nu, H, C, W, B, g):
         for s in range(plan.chunk_ptr[ch], plan.chunk_ptr[ch + 1]):
             c0, start, end = _slot_range(plan, ch, s)
             k = plan.chunk_comp[s]
-            pairs = _bwd_bf16_pairs(start, end)
-            b0 = c0 + np.array([a for a, _ in pairs])
-            b1 = c0 + np.array([a if b is None else b for a, b in pairs])
-            alone = np.array([b is None for _, b in pairs])
-            lone += int(alone.sum())
-            g1 = np.where(alone[None, :], 0.0, g[:, b1]).astype(np.float32)
-            for bins, gl in ((b0, g[:, b0]), (b1, g1)):
+            for step in tk.bwd_bf16_steps(start, end):
+                bins = np.array([b for lane in step for b in lane
+                                 if b is not None])
+                if bins.size == 0:
+                    continue
+                lone += sum(lane[0] is not None and lane[1] is None
+                            for lane in step)
+                bins = c0 + bins
+                gl = g[:, bins]
                 xb = _bf16((nu[bins][None, :] - C[:, k:k + 1])
                            * iw[:, k:k + 1])
                 inv = 1.0 / (1.0 + xb * xb)
@@ -569,10 +582,24 @@ def test_bf16_kernel_replay_matches_plain_bf16(mode, sizes):
     _assert_pair(got, want)
 
 
+@pytest.mark.parametrize("kind", ["fwd", "bwd"])
+@pytest.mark.parametrize("bt,nc,n,comp_bins", [
+    (768, 54, 40000, 536675), (1024, 210, 60000, 210 * 60000),
+    (1280, 224, 120000, 3682749), (64, 36, 6000, 6000)])
+def test_bf16_bound_is_no_longer_than_float32(kind, bt, nc, n, comp_bins):
+    """The bf16 stream needs no more work than the float32 one: the same
+    float32 d and x, packed bf16 arithmetic at twice the rate, and sums the
+    tensor cores can take, so its bound never exceeds float32's."""
+    ms16, _ = tk.bound_ms(kind, bt, nc, n, comp_bins, precision="bf16")
+    ms32, _ = tk.bound_ms(kind, bt, nc, n, comp_bins)
+    assert ms16 <= ms32
+
+
 def test_bf16_plans_and_bounds():
     """bf16 is a plan property of the segment and dense modes only; its
-    bound counts float32-class operations at 67 TFLOP/s and packed bf16
-    ones at twice that (lorentzian_kernel.FLOPS_BF16)."""
+    bound counts float32 operations at 67 TFLOP/s, packed bf16 ones at
+    twice that and the float32 sums at the tensor cores' 989 TFLOP/s
+    (lorentzian_kernel.FLOPS_BF16)."""
     plan = tk.dense_plan(64, 3, precision="bf16")
     assert plan.precision == "bf16" and not plan.windowed
     assert plan.for_walkers(1).precision == "bf16"
@@ -585,9 +612,10 @@ def test_bf16_plans_and_bounds():
             for p in ("f32", "bf16")] == ["fwd", "fwd_bf16", "bwd",
                                           "bwd_bf16"]
     assert set(tk.LAUNCHES) == {"fwd", "bwd", "fwd_bf16", "bwd_bf16"}
-    for kind, (n32, n16) in (("fwd", (8, 5)), ("bwd", (16, 7))):
+    for kind, (n32, n16, ntc) in (("fwd", (4, 5, 2)), ("bwd", (4, 7, 10))):
         ms, by = tk.bound_ms(kind, 768, 54, 40000, 536675, precision="bf16")
-        want = 1e3 * 768 * 536675 * (n32 / 67e12 + n16 / 134e12)
+        want = 1e3 * 768 * 536675 * (n32 / 67e12 + n16 / 134e12
+                                     + ntc / 989e12)
         assert by == "operations" and ms == pytest.approx(want, rel=1e-12)
     with pytest.raises(ValueError, match="precision"):
         tl.segment_values(torch.zeros(8), *(torch.ones(1, 2),) * 4,
