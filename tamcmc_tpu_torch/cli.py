@@ -497,8 +497,16 @@ def cmd_run(args):
         launch_local(args.argv, shape[0] * shape[1])
         return {"mesh": mesh_label, "processes": shape[0] * shape[1]}
     from tamcmc_tpu_torch.parallel import distributed as dist_
-    if distributed:
-        dist_.init_distributed(args.device)
+    # a rank leaves the group it joined: after its fit, behind rank 0 (the
+    # host of a launcher's store); after an error, at once
+    with dist_.joined(args.device) if distributed else \
+            contextlib.nullcontext():
+        return _run_rank(args, shape, runner, mesh_label, distributed)
+
+
+def _run_rank(args, shape, runner, mesh_label, distributed):
+    """cmd_run's fit in this process, a rank of a mesh run or alone."""
+    from tamcmc_tpu_torch.parallel import distributed as dist_
     world = dist_.world_size()
     if shape is None and world > 1:
         raise SystemExit(f"--distributed with {world} processes needs --mesh "

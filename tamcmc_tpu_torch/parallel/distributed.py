@@ -6,6 +6,10 @@ tamcmc_tpu/parallel/distributed.py).
                                environment torchrun exports (MASTER_ADDR,
                                MASTER_PORT, WORLD_SIZE, RANK, LOCAL_RANK);
                                False for a single process
+    joined(device)             a context: joins, and on leaving it takes
+                               shutdown(clean=True) after success (rank 0,
+                               the store's host, leaves last), shutdown()
+                               after an error
     launch_local(argv, n)      `run --mesh TxC` without --distributed: starts
                                T*C ranks on this machine (spawn start
                                method) and exits non-zero if one fails
@@ -26,6 +30,7 @@ local launcher stops every rank as soon as one fails.
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import os
 import shutil
@@ -83,11 +88,47 @@ def init_distributed(device="cuda", init_method=None,
     return world > 1
 
 
-def shutdown():
+def shutdown(clean: bool = False):
+    """Leave the process group (a no-op outside one).
+
+    clean: every rank's work succeeded.  Every rank takes a barrier; then
+    every rank but 0 destroys its group and says so on the group's store,
+    and rank 0 waits (DIST_TIMEOUT_S) until all of them have before it
+    destroys its own.  Under a launcher's environment rank 0's process
+    hosts that store (env://, a TCPStore): a rank still tearing down when
+    the store's host exits can abort ("terminate called without an active
+    exception").  Otherwise (an error path) the group is destroyed at
+    once: a barrier could wait on a rank that died."""
     if dist.is_initialized():
-        dist.destroy_process_group()
+        world, rank_ = dist.get_world_size(), dist.get_rank()
+        if clean and world > 1:
+            dist.barrier()
+            store = dist.distributed_c10d._get_default_store()
+            if rank_:
+                dist.destroy_process_group()
+                store.set(f"tamcmc_left/{rank_}", "1")
+            else:
+                store.set_timeout(datetime.timedelta(seconds=DIST_TIMEOUT_S))
+                store.wait([f"tamcmc_left/{r}" for r in range(1, world)])
+                dist.destroy_process_group()
+        else:
+            dist.destroy_process_group()
     _CTX.clear()
     _GROUPS.clear()
+
+
+@contextlib.contextmanager
+def joined(device="cuda", init_method=None):
+    """The body runs in the process group init_distributed joins; then the
+    group is left: `shutdown(clean=True)` when the body returned,
+    `shutdown()` when it raised."""
+    init_distributed(device, init_method=init_method)
+    try:
+        yield
+    except BaseException:
+        shutdown()
+        raise
+    shutdown(clean=True)
 
 
 def world_size() -> int:
@@ -210,11 +251,8 @@ def _rank_main(rank_: int, argv, world: int, init_method: str):
     if torch.device(args.device).type == "cpu":
         # the ranks share this machine's cores
         torch.set_num_threads(max(1, torch.get_num_threads() // world))
-    init_distributed(args.device, init_method=init_method)
-    try:
+    with joined(args.device, init_method=init_method):
         cli.main([*argv, "--distributed"])
-    finally:
-        shutdown()
 
 
 def launch_local(argv, n_ranks: int):

@@ -151,6 +151,10 @@ ISOLATED = textwrap.dedent("""
     for m in mods:
         importlib.import_module(m)
     assert {"tamcmc_tpu_torch.io.native",
+            "tamcmc_tpu_torch.bench",
+            "tamcmc_tpu_torch.validate_bf16",
+            "tamcmc_tpu_torch.validate_f64",
+            "tamcmc_tpu_torch.golden_flagship",
             "tamcmc_tpu_torch.scale_procs",
             "tamcmc_tpu_torch.ab_ladder",
             "tamcmc_tpu_torch.parallel.mesh",
