@@ -29,10 +29,12 @@ The precision travels with the model: `--precision bf16` (the default, as in
 the reference) builds the model's profile stream in bf16 and draws the
 demo's spectrum through that model, so a bf16 run fits other data than an
 f32 one, as the reference's demo under its bf16 switch does.  The main
-path launches both Lorentzian CUDA kernels once a step:
-`lorentz_fwd_bf16_kernel` and `lorentz_bwd_kernel<false, true>` in bf16,
-the float32 pair with `--precision f32` (`launches_per_step`, from the
-kernels' launch counters over the timed phases).
+path launches both Lorentzian CUDA kernels once a step: the forward with
+the chi22p epilogue (`lorentz_fwd_bf16_kernel<.., true>`, the likelihood
+on its register tile) and `lorentz_bwd_kernel<false, true>` in bf16, the
+float32 pair with `--precision f32` (`launches_per_step`, from the
+kernels' launch counters over the timed phases: lorentz_fwd_chi22p[_bf16]
+and lorentz_bwd[_bf16]).
 
 `step_mfu` is the least time the step's counted work needs on the card over
 `t_full_step_ms` (the counterpart of the reference's `frac_of_issue_sol`):
@@ -188,7 +190,7 @@ def measure(problem, hp, n_temps, n_chains, dev, seed=0, precision="bf16",
         rep_s.append(time.perf_counter() - t1)
         chunks.append(outs["theta0"])
     n_steps = sch.reps * sch.emit * sch.thin
-    keys = [K.launch_key(kind, precision) for kind in ("fwd", "bwd")]
+    keys = [K.launch_key(kind, precision) for kind in ("fwd_chi22p", "bwd")]
     launches = {f"lorentz_{k}": K.LAUNCHES[k] / n_steps for k in keys}
     dt = sum(rep_s)
     log(f"timed phases done in {dt:.1f} s")

@@ -28,6 +28,13 @@ To compare two versions of the source, run this module from a checkout of
 each (`git archive` into the ignored `archive/`, this file copied over the
 older one's) inside one job on one card, in turns: A B B A.
 
+`--chi22p` runs the fused likelihood instead (the segment and dense
+regimes, the demo's spectrum and background through the model's own hook):
+held to the unfused forward kernel plus the plain chain (logL and the
+gradients in H, C, W, B and the white level, then in a per-bin background),
+and timed alone against the unfused forward alone plus the chain's forward,
+and through the package forward and backward against the unfused path.
+
 `--sass` writes `cuobjdump -sass` of the build beside the JSON and prints,
 per kernel instantiation, the opcode counts of every loop that holds two or
 more reciprocals (`MUFU`) or a tensor-core sum (`HMMA`): a loop's dispatch
@@ -73,6 +80,17 @@ def demo_components(problem, n_walkers, rng, dev):
     return tuple(a.contiguous() for a in (H, Cc, W, B))
 
 
+def regime_problem(name, dev):
+    """(demo problem, walkers) of a segment or dense regime."""
+    demo, temps, chains, sizes = {
+        "segment ms_global": ("ms_global", 6, C, {}),
+        "segment kepler_full": ("kepler_full", 10, C, {}),
+        "dense subgiant_mixed": ("subgiant_mixed", 8, C, {}),
+        "segment reduced flagship": ("ms_global", 4, 16,
+                                     {"ngrid": 6000, "n_orders": 4})}[name]
+    return make_demo(demo, seed=0, device=dev, **sizes)[0], temps * chains
+
+
 def regime_inputs(name, dev, rng):
     """{nu, args (H, C, W, B), win or None, g, ranges (lo, hi), plain,
     wrapper}: `plain` and `wrapper` (the package's routed entry, which
@@ -94,17 +112,11 @@ def regime_inputs(name, dev, rng):
                         nu_, *a),
                     wrapper=lambda nu_, *a, precision:
                         L.sum_lorentzians_trunc_batched(nu_, *a))
-    demo, temps, chains, sizes = {
-        "segment ms_global": ("ms_global", 6, C, {}),
-        "segment kepler_full": ("kepler_full", 10, C, {}),
-        "dense subgiant_mixed": ("subgiant_mixed", 8, C, {}),
-        "segment reduced flagship": ("ms_global", 4, 16,
-                                     {"ngrid": 6000, "n_orders": 4})}[name]
-    problem, _, _, _ = make_demo(demo, seed=0, device=dev, **sizes)
-    args = demo_components(problem, temps * chains, rng, dev)
+    problem, n_walkers = regime_problem(name, dev)
+    args = demo_components(problem, n_walkers, rng, dev)
     nu = problem.nu
     n, nc = nu.shape[0], args[0].shape[1]
-    g = f32(rng.normal(size=(temps * chains, n)))
+    g = f32(rng.normal(size=(n_walkers, n)))
     if name.startswith("segment"):
         fn = problem.model_fn
         groups = fn._window_groups
@@ -129,6 +141,141 @@ def regime_inputs(name, dev, rng):
 
 REGIMES = ("windowed", "segment ms_global", "dense subgiant_mixed",
            "segment kepler_full", "segment reduced flagship")
+CHI_REGIMES = REGIMES[1:]
+
+
+def chi22p_inputs(problem, n_walkers, rng, dev):
+    """The fused likelihood's inputs at `n_walkers` parameter vectors drawn
+    around params0, through the model's own hook (Problem's fixed
+    hand-off): {nu, spec, args (H, C, W, B), plan (the model's, float32),
+    bg_n (N,), bg_b (Bt, 1), bg_full (Bt, N)}.  bg_n and bg_b are the
+    demo's split (all Harvey terms fixed, the white level free); bg_full
+    is the whole background per walker, as a free Harvey term makes it."""
+    scale = torch.as_tensor(default_init_scales(problem), device=dev)
+    x0 = problem.extract(problem.params0)
+    u = torch.as_tensor(rng.standard_normal((n_walkers, x0.shape[0])),
+                        dtype=torch.float32, device=dev)
+    hook = problem.model_fn._chi22p_inputs
+    fixed = (problem.params0, ~problem.priors.free_mask)
+    with torch.no_grad():
+        full = problem.embed(x0 + scale * u)
+        H, Cc, W, B, plan, bg_n, bg_b = hook(full, problem.nu, fixed=fixed)
+        bg_full = hook(full, problem.nu)[6]
+    if bg_n is None or bg_b is None or bg_b.shape[-1] != 1:
+        raise ValueError("the regime wants fixed Harvey terms and a free "
+                         "white level")
+    return dict(nu=problem.nu, spec=problem.spec,
+                args=tuple(a.contiguous() for a in (H, Cc, W, B)), plan=plan,
+                bg_n=bg_n, bg_b=bg_b.contiguous(),
+                bg_full=bg_full.contiguous())
+
+
+def chi22p_fns(inp, precision="f32", full_bg=False):
+    """(fused, unfused, plain), each f(H, C, W, B, bg_b) -> logL (Bt,): the
+    routed fused likelihood (on the card the forward kernel with its
+    epilogue), the unfused forward kernel plus the plain chain, and the
+    plain version; bg_b is inp's bg_b (with bg_n) or, with `full_bg`, its
+    bg_full (no bg_n)."""
+    from tamcmc_tpu_torch.stats.likelihoods import likelihood_chi22p
+    plan0, nu, spec = inp["plan"], inp["nu"], inp["spec"]
+    if plan0.segments is not None:
+        plan = K.segment_plan(plan0.segments, plan0.ncomp, plan0.n_bins,
+                              precision=precision)
+    else:
+        plan = K.dense_plan(plan0.n_bins, plan0.ncomp, precision=precision)
+    bg_n = None if full_bg else inp["bg_n"]
+
+    def fused(h, c, w, b, bb):
+        return L.lorentzian_chi22p(nu, spec, h, c, w, b, plan, bg_n, bb,
+                                   precision)
+
+    def unfused(h, c, w, b, bb):
+        if plan.segments is not None:
+            modes = L.sum_lorentzians_segments(nu, h, c, w, b, plan.segments,
+                                               plan, precision)
+        else:
+            modes = L.sum_lorentzians(nu, h, c, w, b, precision)
+        bg = bb if bg_n is None else bg_n + bb
+        return likelihood_chi22p(spec, modes + bg)
+
+    def plain(h, c, w, b, bb):
+        return L.lorentzian_chi22p_plain(nu, spec, h, c, w, b, plan, bg_n,
+                                         bb, precision)
+    return fused, unfused, plain
+
+
+def upstream(rng, bt, dev):
+    """An upstream gradient of logL for the checks: 1/2, 1 or 2 per walker.
+    Powers of two scale every rounding alike, so go g (the backward's
+    staging) is the chain's go (S/m)/m + (-go)/m bit for bit, and the bf16
+    stream, which rounds it to bf16, sees the same values."""
+    return torch.as_tensor(2.0 ** rng.integers(-1, 2, bt),
+                           dtype=torch.float32, device=dev)
+
+
+def check_chi22p(label, inp, precision, full_bg, go, tol=1e-4):
+    """The fused likelihood against the unfused forward kernel plus the
+    plain chain on the same inputs: logL within |a - b| <= tol + tol |b|,
+    the gradients of sum(go logL) in H, C, W, B and bg_b within tol of
+    each one's max, every value finite, and a second forward and backward
+    bitwise equal to the first.  Raises otherwise; returns the errors."""
+    fused, unfused, _ = chi22p_fns(inp, precision, full_bg)
+    args = (*inp["args"], inp["bg_full"] if full_bg else inp["bg_b"])
+    runs = []
+    for f in (fused, fused, unfused):
+        leaves = [a.clone().requires_grad_(True) for a in args]
+        out = f(*leaves)
+        runs.append((out.detach(), torch.autograd.grad(out, leaves, go)))
+        del out, leaves
+    (o1, g1), (o2, g2), (ow, gw) = runs
+    same = torch.equal(o1, o2) and all(torch.equal(a, b)
+                                       for a, b in zip(g1, g2))
+    err = (o1 - ow).abs()
+    rels = [float((a - b).abs().max() / (b.abs().max() + 1e-30))
+            for a, b in zip(g1, gw)]
+    finite = bool(torch.isfinite(o1).all()) and all(
+        bool(torch.isfinite(a).all()) for a in g1)
+    res = {"max_abs_err": float(err.max()),
+           "max_rel_err": float((err / ow.abs()).max()),
+           "grad_max_rel_err": max(rels),
+           "grad_rel": dict(zip(("H", "C", "W", "B", "bg_b"), rels)),
+           "bitwise_repeatable": same}
+    if not (bool((err <= tol + tol * ow.abs()).all()) and max(rels) <= tol
+            and same and finite):
+        raise AssertionError(f"{label}: fused likelihood against the "
+                             f"unfused kernel and the chain: {res}, finite "
+                             f"{finite}")
+    return res
+
+
+def prepare_chi22p(inp, precision="f32"):
+    """The fused forward's launch (g written, as a fit's step writes it) on
+    preallocated outputs, arguments converted once, with inp's bg_n and
+    bg_b; returns (fwd, logL, g)."""
+    nu, (H, Cc, W, B) = inp["nu"], inp["args"]
+    bt, n = H.shape[0], nu.shape[0]
+    lo, hi = inp["plan"].comp_lo, inp["plan"].comp_hi
+    plan = K.LorentzPlan(lo, hi, n, precision=precision)
+    K._check(nu, (H, Cc, W, B), None, plan)
+    spec = inp["spec"].reshape(1, n).contiguous()
+    bg_n = inp["bg_n"].reshape(1, n).contiguous()
+    bg_b = inp["bg_b"].reshape(bt).contiguous()
+    g = torch.empty((bt, n), dtype=torch.float32, device=nu.device)
+    partial = torch.empty((bt, plan.n_tiles, 2), dtype=torch.float32,
+                          device=nu.device)
+    logL, gsum = (torch.empty(bt, dtype=torch.float32, device=nu.device)
+                  for _ in range(2))
+    t = plan.tensors(nu.device)[:5]
+    args = (*map(K._ptr, (nu, H, Cc, W, B, *t, spec, bg_n, bg_b, g, partial,
+                          plan.tickets(bt, nu.device, "fwd"), logL, gsum)),
+            bt, H.shape[1], n, plan.n_tiles, bt, 0,
+            int(precision == "bf16"), int(plan.wide_forward(bt)),
+            K._vec_ok(n, nu, spec, bg_n, g), K._stream(nu.device))
+    lib = K._lib()
+
+    def fwd(_keep=(plan, spec, bg_n, bg_b, g, partial, logL, gsum)):
+        K._raise_on(lib.lorentz_fwd_chi22p(*args), "lorentz_fwd_chi22p")
+    return fwd, logL, g
 
 
 def prepare(inp, precision="f32"):
@@ -150,11 +297,12 @@ def prepare(inp, precision="f32"):
     lib = K._lib()
 
     # the arguments are converted once, so a call costs the host little
-    # more than the launch itself; the closures keep the plans' tensors
-    def fwd(_keep=(plan, plan_b, scratch)):
+    # more than the launch itself; the closures keep every tensor their
+    # pointers name alive, whether or not the caller keeps the outputs
+    def fwd(_keep=(plan, plan_b, scratch, out)):
         K._raise_on(lib.lorentz_fwd(*f_args), "lorentz_fwd")
 
-    def bwd():
+    def bwd(_keep=(plan_b, scratch, g, grads)):
         K._raise_on(lib.lorentz_bwd(*b_args), "lorentz_bwd")
     return fwd, bwd, out, grads
 
@@ -291,6 +439,68 @@ def _max_cover(lo, hi, n):
     return int(np.cumsum(edges)[:n].max())
 
 
+def _chi22p_regime(name, dev, rng, precisions, a, smi):
+    """Check and time the fused likelihood at one regime: the kernel alone
+    against the unfused forward alone plus the chain's forward, and both
+    through the package (forward and backward), in turns."""
+    from tamcmc_tpu_torch.stats.likelihoods import likelihood_chi22p
+    problem, n_walkers = regime_problem(name, dev)
+    inp = chi22p_inputs(problem, n_walkers, rng, dev)
+    del problem
+    (H, Cc, W, B), nu, spec = inp["args"], inp["nu"], inp["spec"]
+    bt, nc, n = H.shape[0], H.shape[1], nu.shape[0]
+    comp_bins = inp["plan"].comp_bins()
+    go = upstream(rng, bt, dev)
+    bg = inp["bg_n"] + inp["bg_b"]
+    reg = {"bt": bt, "nc": nc, "n": n, "comp_bins_per_walker": comp_bins,
+           "runs": {}}
+    launch = {}
+    for prec in precisions:
+        for full_bg in (False, True):
+            key = f"check {prec} bg_b {'(Bt, N)' if full_bg else '(Bt,)'}"
+            reg[key] = check_chi22p(f"{name} {key}", inp, prec, full_bg, go)
+        fwd_chi, _, _ = prepare_chi22p(inp, prec)
+        fwd, _, out, _ = prepare(dict(
+            nu=nu, args=inp["args"], win=None,
+            g=torch.empty((bt, n), device=dev),
+            ranges=(inp["plan"].comp_lo, inp["plan"].comp_hi)), prec)
+
+        def unfused_alone(fwd=fwd, out=out):
+            fwd()
+            likelihood_chi22p(spec, out + bg)
+        fused, unfused, _ = chi22p_fns(inp, prec)
+        leaves = [t.clone().requires_grad_(True)
+                  for t in (*inp["args"], inp["bg_b"])]
+
+        def through(f, leaves=leaves):
+            return lambda: torch.autograd.grad(f(*leaves).sum(), leaves)
+        launch[f"{prec} fused kernel"] = fwd_chi
+        launch[f"{prec} unfused kernel + chain"] = unfused_alone
+        launch[f"{prec} fused fwd+bwd"] = through(fused)
+        launch[f"{prec} unfused + chain fwd+bwd"] = through(unfused)
+        reg["runs"].update({k: [] for k in launch if k.startswith(prec)})
+        reg[f"{prec} bound_ms"], reg[f"{prec} bound_by"] = K.bound_ms(
+            "fwd_chi22p", bt, nc, n, comp_bins, precision=prec)
+    order = list(launch)
+    torch.cuda.reset_peak_memory_stats()
+    for turn in range(a.turns):
+        for key in order if turn % 2 == 0 else order[::-1]:
+            reg["runs"][key].append(_time_ms(launch[key], a.reps))
+    for key, times in reg["runs"].items():
+        print(f"chi22p {name} ({bt}x{nc}x{n}) {key}: "
+              f"{' '.join(f'{t:.4f}' for t in times)} ms  [{smi}]")
+    for prec in precisions:
+        print(f"chi22p {name} {prec}: bound {reg[f'{prec} bound_ms']:.4f} ms "
+              f"by {reg[f'{prec} bound_by']}; "
+              + "; ".join(f"{k}: logL max rel {v['max_rel_err']:.2e}, grads "
+                          f"max rel {v['grad_max_rel_err']:.2e}"
+                          for k, v in reg.items()
+                          if k.startswith(f"check {prec}")))
+    del inp, launch
+    torch.cuda.empty_cache()
+    return reg
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--regime", action="append", choices=REGIMES)
@@ -299,6 +509,10 @@ def main(argv=None):
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--turns", type=int, default=2)
     ap.add_argument("--sass", action="store_true")
+    ap.add_argument("--chi22p", action="store_true",
+                    help="the forward with the likelihood's epilogue "
+                         "against the unfused forward plus the chain, at "
+                         "the segment and dense regimes")
     ap.add_argument("--out", default="chiprun_out/kernel_ab.json")
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -330,6 +544,13 @@ def main(argv=None):
                       f"instructions {loop['ops']}")
 
     rng = np.random.default_rng(0)
+    if a.chi22p:
+        result["chi22p"] = {
+            name: _chi22p_regime(name, dev, rng, precisions, a, smi)
+            for name in a.regime or CHI_REGIMES if name in CHI_REGIMES}
+        out_path.write_text(json.dumps(result, indent=1))
+        print(f"wrote {out_path}")
+        return 0
     for name in a.regime or REGIMES:
         inp = regime_inputs(name, dev, rng)
         bt, nc = inp["args"][0].shape

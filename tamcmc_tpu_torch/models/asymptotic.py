@@ -35,8 +35,10 @@ import torch
 from tamcmc_tpu_torch.models.common import fixed_noise, interp_monotonic
 from tamcmc_tpu_torch.ops.armm import mixed_mode_frequencies
 from tamcmc_tpu_torch.ops.lorentzian import sum_lorentzians
-from tamcmc_tpu_torch.ops.lorentzian_kernel import check_precision
-from tamcmc_tpu_torch.ops.noise import noise_background
+from tamcmc_tpu_torch.ops.lorentzian_kernel import (check_precision,
+                                                    dense_plan)
+from tamcmc_tpu_torch.ops.noise import (noise_background,
+                                        noise_background_parts)
 from tamcmc_tpu_torch.ops.visibilities import mode_visibility
 from tamcmc_tpu_torch.ops.widths import appourchaux2016_width
 from tamcmc_tpu_torch.utils.blocks import BlockLayout
@@ -99,8 +101,9 @@ def _ridge_fit(f0):
 
 def build_rgb_asympt(spec: RGBAsymptSpec, precision: str = "f32"):
     """Return (model_fn, layout); model_fn carries `_assemble` (params ->
-    (H, C, W, B, noise), components ordered l=0, l=2, l=1) and `_background`
-    (noise block -> background on a grid).  `precision` is the Lorentzian
+    (H, C, W, B, noise), components ordered l=0, l=2, l=1), `_background`
+    (noise block -> background on a grid) and the `_chi22p_inputs` hook of
+    the fused likelihood.  `precision` is the Lorentzian
     profile stream's ("f32" | "bf16", ops/lorentzian.py)."""
     if spec.height_kind not in ("equipartition", "inertia"):
         raise ValueError(f"unknown height_kind {spec.height_kind!r}")
@@ -179,7 +182,20 @@ def build_rgb_asympt(spec: RGBAsymptSpec, precision: str = "f32"):
         return sum_lorentzians(nu, H, C, W, B, precision) + background(
             nu, noise, fixed_noise(layout, fixed))
 
+    def chi22p_inputs(params, nu, fixed=None):
+        """(H, C, W, B, plan, bg_n, bg_b) of ops/lorentzian.py
+        lorentzian_chi22p: the components, the dense plan and the
+        background split as ops/noise.py noise_background_parts splits
+        it."""
+        H, C, W, B, noise = assemble(params)
+        bg_n, bg_b = noise_background_parts(
+            nu, noise, n_harvey=spec.n_harvey, kind=spec.noise_kind,
+            const=fixed_noise(layout, fixed))
+        return (H, C, W, B, dense_plan(nu.shape[0], H.shape[-1],
+                                       precision=precision), bg_n, bg_b)
+
     model_fn._spec = spec
     model_fn._assemble = assemble
     model_fn._background = background
+    model_fn._chi22p_inputs = chi22p_inputs
     return model_fn, layout

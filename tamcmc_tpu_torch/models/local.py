@@ -28,7 +28,8 @@ import dataclasses
 import torch
 
 from tamcmc_tpu_torch.ops.lorentzian import sum_lorentzians
-from tamcmc_tpu_torch.ops.lorentzian_kernel import check_precision
+from tamcmc_tpu_torch.ops.lorentzian_kernel import (check_precision,
+                                                    dense_plan)
 from tamcmc_tpu_torch.ops.rotation import split_frequencies_a1etaa3
 from tamcmc_tpu_torch.ops.visibilities import mode_visibility
 from tamcmc_tpu_torch.utils.blocks import BlockLayout
@@ -103,8 +104,18 @@ def _build_local(layout, n_per_l, m_weights, precision):
         return sum_lorentzians(nu, H, C, W, B, precision) \
             + background(nu, noise)
 
+    def chi22p_inputs(params, nu, fixed=None):
+        """(H, C, W, B, plan, bg_n, bg_b) of ops/lorentzian.py
+        lorentzian_chi22p: the components, the dense plan, no shared
+        background and the white level (..., 1) per walker."""
+        H, C, W, B, noise = assemble(params)
+        return (H, C, W, B, dense_plan(nu.shape[0], H.shape[-1],
+                                       precision=precision),
+                None, background(nu, noise))
+
     model_fn._assemble = assemble      # params -> (H, C, W, B, noise)
     model_fn._background = background  # (nu, noise, const) -> background
+    model_fn._chi22p_inputs = chi22p_inputs
     return model_fn, layout
 
 

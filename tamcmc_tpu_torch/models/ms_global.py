@@ -33,8 +33,9 @@ from tamcmc_tpu_torch.ops.lorentzian import (
     make_static_window_groups, partition_window_groups, segment_values,
     sum_lorentzians, sum_lorentzians_segments)
 from tamcmc_tpu_torch.ops.lorentzian_kernel import (check_precision,
-                                                    segment_plan)
-from tamcmc_tpu_torch.ops.noise import noise_background
+                                                    dense_plan, segment_plan)
+from tamcmc_tpu_torch.ops.noise import (noise_background,
+                                        noise_background_parts)
 from tamcmc_tpu_torch.ops.widths import appourchaux2016_width
 from tamcmc_tpu_torch.utils.blocks import BlockLayout
 from tamcmc_tpu_torch.utils.constants import DNU_SUN, G_CGS, RHO_SUN
@@ -130,10 +131,11 @@ def build_ms_global(spec: MSGlobalSpec, precision: str = "f32"):
     """Return (model_fn, layout): model_fn(params (..., D), nu) -> (..., N).
 
     model_fn carries `_assemble` (params -> component arrays and noise
-    block), `_background` (noise block -> background on a grid), `_spec`
-    and, with spec.window_hint, `_window_groups` (the disjoint
-    segments), `_plan` (their kernel plan, built once here) and the
-    `_segments_and_bg` hook of the piece-wise likelihood."""
+    block), `_background` (noise block -> background on a grid), `_spec`,
+    the `_chi22p_inputs` hook of the fused likelihood and, with
+    spec.window_hint, `_window_groups` (the disjoint segments), `_plan`
+    (their kernel plan, built once here) and the `_segments_and_bg` hook of
+    the piece-wise likelihood."""
     if spec.rotation not in ROTATIONS:
         raise ValueError(f"unknown rotation {spec.rotation!r}; have "
                          f"{', '.join(ROTATIONS)}")
@@ -225,11 +227,28 @@ def build_ms_global(spec: MSGlobalSpec, precision: str = "f32"):
             modes = sum_lorentzians(nu, H, C, W, B, precision)
         return modes + background(nu, noise, fixed_noise(layout, fixed))
 
+    def chi22p_inputs(params, nu, fixed=None):
+        """(H, C, W, B, plan, bg_n, bg_b) of ops/lorentzian.py
+        lorentzian_chi22p: the components, the segment plan (the dense one
+        without a window hint) and the background split into its part no
+        walker changes and its per-walker part (ops/noise.py
+        noise_background_parts).  fixed: as model_fn's."""
+        H, C, W, B, noise = assemble(params)
+        # without pieces the background alone carries the walkers' shape
+        const = fixed_noise(layout, fixed) if groups != () else None
+        bg_n, bg_b = noise_background_parts(
+            nu, noise, n_harvey=spec.n_harvey, kind=spec.noise_kind,
+            const=const)
+        use = plan if groups is not None else dense_plan(
+            nu.shape[0], H.shape[-1], precision=precision)
+        return H, C, W, B, use, bg_n, bg_b
+
     model_fn._assemble = assemble      # params -> (H, C, W, B, noise)
     model_fn._background = background  # (nu, noise, const) -> background
     model_fn._spec = spec              # the spec this model was built from
     model_fn._window_groups = groups
     model_fn._plan = plan
+    model_fn._chi22p_inputs = chi22p_inputs
     if groups is not None:
         def segments_and_bg(params, nu, fixed=None):
             """The partition's piece values plus a background evaluator on

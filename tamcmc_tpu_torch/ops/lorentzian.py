@@ -13,11 +13,18 @@ Every function is batched over leading dims: params (..., NC), grid (N,) ->
 (batch, NC, N) residual per op alive.
 
 All routing lives here.  `sum_lorentzians`, `sum_lorentzians_trunc_batched`,
-`segment_values` and `sum_lorentzians_segments` choose by tensor device
-only: CUDA tensors go through the hand-written kernels of
+`segment_values`, `sum_lorentzians_segments` and `lorentzian_chi22p` choose
+by tensor device only: CUDA tensors go through the hand-written kernels of
 ops/lorentzian_kernel.py, CPU tensors through the plain versions here.  A
 CUDA tensor never falls back: a failed build, a bad argument or a refused
 launch raises.
+
+`lorentzian_chi22p` is the main path of every chi22p fit without a mask:
+the mode sum, the background and the chi^2(2 dof) likelihood in one
+forward kernel (its epilogue), so that the (Bt, N) model never reaches
+device memory; its plain version is the unfused chain
+(likelihood_chi22p_pieces over `segment_values_plain` on a segment plan,
+likelihood_chi22p over `sum_lorentzians_plain` on a dense one).
 
 Precision of the profile stream.  The dense and segment sums take a
 `precision` argument, "f32" (the stream in the inputs' own floating type:
@@ -35,10 +42,14 @@ both packages.
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
 from tamcmc_tpu_torch.ops import lorentzian_kernel as _kernel
+from tamcmc_tpu_torch.stats.likelihoods import (likelihood_chi22p,
+                                                likelihood_chi22p_pieces)
 
 _WFLOOR = 1e-6
 _BF16 = torch.bfloat16
@@ -389,3 +400,102 @@ def sum_lorentzians_segments(nu, H, C, W, B, segments, plan=None,
                                      precision)
     return sum_lorentzians_segments_plain(nu, H, C, W, B, segments,
                                           precision)
+
+
+# ---------------------------------------------------------------------------
+# the fused likelihood: Lorentzian sum + background -> chi22p logL
+# ---------------------------------------------------------------------------
+
+def _background_sum(spec, bg_n, bg_b):
+    """bg_n + bg_b, the background the model adds to the modes (either may
+    be None)."""
+    if bg_n is None and bg_b is None:
+        return spec.new_zeros(spec.shape[-1])
+    if bg_n is None or bg_b is None:
+        return bg_b if bg_n is None else bg_n
+    return bg_n + bg_b
+
+
+def lorentzian_chi22p_plain(nu, spec, H, C, W, B, plan, bg_n=None,
+                            bg_b=None, precision="f32"):
+    """The unfused chain: the mode sum in pieces (a segment plan) or over
+    the grid (a dense one) plus bg_n + bg_b, through the chi22p
+    likelihood."""
+    bg = _background_sum(spec, bg_n, bg_b)
+    if plan.segments is not None:
+        pieces = segment_values_plain(nu, H, C, W, B, plan.segments,
+                                      precision)
+        return likelihood_chi22p_pieces(spec, pieces,
+                                        lambda lo, hi: bg[..., lo:hi])
+    return likelihood_chi22p(
+        spec, sum_lorentzians_plain(nu, H, C, W, B, precision) + bg)
+
+
+def _rows(t, lead, n):
+    """(R, N) contiguous rows of `t` (..., N), which broadcasts against the
+    walkers' dims `lead`: R is the product of the leading dims that t
+    carries (a star axis), each row serving the walkers below it; a general
+    broadcast gets one row per walker."""
+    shape = (1,) * (len(lead) - (t.ndim - 1)) + tuple(t.shape[:-1])
+    k = len(shape)
+    while k and shape[k - 1] == 1:
+        k -= 1
+    if shape[:k] != tuple(lead[:k]):
+        k = len(lead)
+    rows = math.prod(lead[:k])
+    full = tuple(lead[:k]) + (1,) * (len(lead) - k) + (n,)
+    return t.reshape(shape + (n,)).expand(full).reshape(rows, n).contiguous()
+
+
+def _kernel_chi22p(nu, spec, H, C, W, B, plan, bg_n, bg_b):
+    """Flatten leading dims to the kernel's (Bt, NC), the spectrum and the
+    shared background to rows, the per-walker background to (Bt,) or
+    (Bt, N); logL back to the leading dims."""
+    lead, nc = tuple(H.shape[:-1]), H.shape[-1]
+    n = nu.shape[0]
+    bt = math.prod(lead)
+
+    def flat(a):
+        return a.expand(lead + (nc,)).reshape(-1, nc).contiguous()
+
+    # the spectrum and the shared background in rows of one shape
+    shared = tuple(spec.shape[:-1]) if bg_n is None else \
+        torch.broadcast_shapes(spec.shape[:-1], bg_n.shape[:-1])
+    spec_rows = _rows(spec.expand(shared + (n,)), lead, n)
+    bgn_rows = (None if bg_n is None
+                else _rows(bg_n.expand(shared + (n,)), lead, n))
+    if bg_b is not None:
+        width = bg_b.shape[-1]
+        bg_b = bg_b.expand(lead + (width,)).reshape(
+            (bt,) if width == 1 else (bt, width)).contiguous()
+    logL = _kernel.lorentzian_chi22p_kernel(
+        nu.contiguous(), spec_rows, flat(H), flat(C), flat(W), flat(B),
+        bgn_rows, bg_b, plan)
+    return logL.reshape(lead)
+
+
+def lorentzian_chi22p(nu, spec, H, C, W, B, plan, bg_n=None, bg_b=None,
+                      precision="f32"):
+    """chi^2(2 dof) log-likelihood of the Lorentzian sum plus background,
+    -sum_n [ln max(M, 1e-12) + S / M] with M = modes + (bg_n + bg_b):
+    nu (N,), params (..., NC) -> logL (...).
+
+    plan: the model's segment_plan, or dense_plan for a dense model, in
+    `precision`.  spec (N,) or a row per star ((S, 1, ..., N) against
+    (S, T, C, NC) walkers).  bg_n: the background no walker changes (the
+    all-fixed Harvey terms), (N,) or a row per star, or None; bg_b: the
+    per-walker part, (..., 1) (a free white level) or (..., N) (a free
+    Harvey term), or None.  Quiet bins outside every segment hold the
+    background alone.  CUDA tensors launch the forward kernel with its
+    chi22p epilogue (the model never reaches device memory) and the
+    backward kernel on its saved gradient; CPU tensors take
+    `lorentzian_chi22p_plain`."""
+    if plan.windowed or plan.precision != precision:
+        raise ValueError(f"the fused likelihood takes a segment or dense "
+                         f"plan in {precision!r}; got a "
+                         f"{'windowed' if plan.windowed else plan.precision}"
+                         " plan")
+    if _on_cuda(nu, H):
+        return _kernel_chi22p(nu, spec, H, C, W, B, plan, bg_n, bg_b)
+    return lorentzian_chi22p_plain(nu, spec, H, C, W, B, plan, bg_n, bg_b,
+                                   precision)

@@ -52,6 +52,28 @@ def kallinger2014(nu, noise_params, nu_nyquist):
     return eta2 * total + torch.clamp(noise_params[..., 4, None], min=0.0)
 
 
+def _background_terms(nu, noise_params, n_harvey, kind, const):
+    """(Harvey sum, clamped white level, whether every Harvey term and
+    whether the white level were read from `const`)."""
+    fn = harvey_like if kind == "harvey_like" else harvey_1985
+
+    def fixed(lo, hi):
+        return const is not None and bool(const[1][lo:hi].all())
+
+    def block(lo, hi):
+        if fixed(lo, hi):
+            return const[0][..., lo:hi].detach()
+        return noise_params[..., lo:hi]
+
+    total = torch.zeros_like(nu)
+    for k in range(n_harvey):
+        A, B, p = (v[..., None] for v in block(3 * k, 3 * k + 3).unbind(-1))
+        total = total + fn(nu, A, B, p)
+    white = torch.clamp(block(3 * n_harvey, 3 * n_harvey + 1), min=0.0)
+    harvey_fixed = all(fixed(3 * k, 3 * k + 3) for k in range(n_harvey))
+    return total, white, harvey_fixed, fixed(3 * n_harvey, 3 * n_harvey + 1)
+
+
 def noise_background(nu, noise_params, n_harvey: int = 3,
                      kind: str = "harvey_like", const=None):
     """n_harvey components + white noise on grid nu (n,).
@@ -65,16 +87,24 @@ def noise_background(nu, noise_params, n_harvey: int = 3,
     noise0 has a leading star axis, (S, 1, 1, 3*n_harvey + 1)).  The
     values, and the order of the sum, are those of the batched
     evaluation."""
-    fn = harvey_like if kind == "harvey_like" else harvey_1985
+    total, white, _, _ = _background_terms(nu, noise_params, n_harvey, kind,
+                                           const)
+    return total + white
 
-    def block(lo, hi):
-        if const is not None and bool(const[1][lo:hi].all()):
-            return const[0][..., lo:hi].detach()
-        return noise_params[..., lo:hi]
 
-    total = torch.zeros_like(nu)
-    for k in range(n_harvey):
-        A, B, p = (v[..., None] for v in block(3 * k, 3 * k + 3).unbind(-1))
-        total = total + fn(nu, A, B, p)
-    white = block(3 * n_harvey, 3 * n_harvey + 1)
-    return total + torch.clamp(white, min=0.0)
+def noise_background_parts(nu, noise_params, n_harvey: int = 3,
+                           kind: str = "harvey_like", const=None):
+    """noise_background as (shared, per_walker), the fused likelihood's
+    bg_n and bg_b: shared + per_walker is its value, the same sum in the
+    same order.  With every Harvey term read from `const`, shared is their
+    sum ((n,), or a row per star) and per_walker the white level (..., 1),
+    or shared the whole background and per_walker None when the white
+    level is fixed too; with a free Harvey term, shared is None and
+    per_walker the whole (..., n) background."""
+    total, white, harvey_fixed, white_fixed = _background_terms(
+        nu, noise_params, n_harvey, kind, const)
+    if not harvey_fixed:
+        return None, total + white
+    if white_fixed:
+        return total + white, None
+    return total, white

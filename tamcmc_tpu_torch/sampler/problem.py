@@ -14,8 +14,9 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from tamcmc_tpu_torch.stats.likelihoods import (
-    get_likelihood, likelihood_chi22p, likelihood_chi22p_pieces)
+from tamcmc_tpu_torch.ops.lorentzian import lorentzian_chi22p
+from tamcmc_tpu_torch.stats.likelihoods import (get_likelihood,
+                                                likelihood_chi22p)
 from tamcmc_tpu_torch.stats.priors import PriorTable
 from tamcmc_tpu_torch.utils.blocks import BlockLayout
 
@@ -98,7 +99,7 @@ class Problem:
         step, not once per walker, and gets no gradient.  Eager torch
         materialises the fixed runs into every row, so the port keeps that
         property explicitly instead: `_logL_from_full` hands the model (its
-        window hook or its dense model_fn) (params0, fixed mask), and the
+        fused-likelihood hook or its model_fn) (params0, fixed mask), and the
         model evaluates its all-fixed terms once from params0."""
         batch = x.shape[:-1]
         pieces = []
@@ -114,23 +115,38 @@ class Problem:
         return full[..., torch.as_tensor(self.free_idx, device=full.device)]
 
     # ---- log-posterior pieces ----
-    @property
-    def _pieces_hook(self):
-        """The fused piece-wise chi22p path of window-partitioned models."""
+    def _model_hook(self, name):
+        """The model's hook `name` where the fit is chi22p without a
+        mask, else None."""
         try:
             is_chi22p = get_likelihood(self.likelihood) is likelihood_chi22p
         except KeyError:
             is_chi22p = False
         if is_chi22p and self.mask is None:
-            return getattr(self.model_fn, "_segments_and_bg", None)
+            return getattr(self.model_fn, name, None)
         return None
+
+    @property
+    def _pieces_hook(self):
+        """The piece-wise chi22p hook of window-partitioned models (their
+        segment plan is what `_chi22p_hook` hands the fused likelihood)."""
+        return self._model_hook("_segments_and_bg")
+
+    @property
+    def _chi22p_hook(self):
+        """The fused likelihood's inputs of a Lorentzian spectrum model
+        (ops/lorentzian.py lorentzian_chi22p): on the card one forward
+        kernel with the likelihood as its epilogue, on the CPU the plain
+        chain."""
+        return self._model_hook("_chi22p_inputs")
 
     def _logL_from_full(self, full):
         fixed = (self.params0, ~self.priors.free_mask)
-        hook = self._pieces_hook
+        hook = self._chi22p_hook
         if hook is not None:
-            segs, bg = hook(full, self.nu, fixed=fixed)
-            return likelihood_chi22p_pieces(self.spec, segs, bg)
+            H, C, W, B, plan, bg_n, bg_b = hook(full, self.nu, fixed=fixed)
+            return lorentzian_chi22p(self.nu, self.spec, H, C, W, B, plan,
+                                     bg_n, bg_b, plan.precision)
         model = self.model_fn(full, self.nu, fixed=fixed)
         lfn = get_likelihood(self.likelihood)
         if self.likelihood == "chi_square":

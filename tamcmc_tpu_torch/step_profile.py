@@ -10,10 +10,13 @@ FILE is read exactly as `run --problem FILE` reads it; it must name a
 spectrum model of the MS_Global, RGB asymptotic or MS_local family.  T
 defaults to the demo's or the file's own (6 for ms_global, 10 for
 kepler_full, 8 for subgiant_mixed).  Each piece of the step (assembly,
-background, the Lorentzian kernels: segment mode for a model with window
-segments, dense mode otherwise, the likelihood given the modes, one
-backward, prior, the full step, the swap sweep) is run on the same state,
-after warm-up, and timed twice:
+background, the forward kernel without the epilogue: segment mode for a
+model with window segments, dense mode otherwise, the likelihood given the
+modes, the log-likelihood forward and forward+backward as the step runs it
+(the forward kernel with the chi22p epilogue and the backward kernel), the
+same through the unfused chain (the model, then the likelihood; the on-card
+reference) and with the background per walker, prior, the full step, the
+swap sweep) is run on the same state, after warm-up, and timed twice:
   host_ms    synchronised wall time per call, averaged over `--reps` calls;
   device_ms  busy device time per call from torch.profiler: the union of
              the kernels', copies' and fills' intervals, over `--reps` calls;
@@ -22,8 +25,9 @@ after warm-up, and timed twice:
              idle gaps included (device_ms <= span_ms).
 The whole step is also timed on the host over `--steps` steps, adaptive and
 frozen, and in an interleaved A/B against the same step with the background
-evaluated per walker.  Every host timing runs before the first profiler
-session.  The idle
+evaluated per walker; `peak_mib` is torch.cuda.max_memory_allocated over
+one adaptive step and over one log-likelihood forward+backward, each from a
+reset.  Every host timing runs before the first profiler session.  The idle
 share is 1 - (mala_step's busy device time) / (host time of an adaptive
 step).  One JSON object goes to `--out`, and a table to standard output.
 Needs one CUDA device.
@@ -150,11 +154,15 @@ def main(argv=None):
     def per_walker_model(params, nu_, fixed=None):
         return fn(params, nu_)
 
-    # the model without the Problem's fixed mask: the per-walker background
-    if segments:
-        per_walker_model._segments_and_bg = \
-            lambda params, nu_, fixed=None: fn._segments_and_bg(params, nu_)
+    def unfused_model(params, nu_, fixed=None):
+        return fn(params, nu_, fixed=fixed)
+
+    # the model without the fused likelihood's hook, so the Problem takes
+    # the model and then the likelihood: with the fixed terms once (the
+    # unfused chain) and without the Problem's fixed mask (the per-walker
+    # background)
     per_walker = dataclasses.replace(problem, model_fn=per_walker_model)
+    unfused = dataclasses.replace(problem, model_fn=unfused_model)
 
     def modes_fn(H, C, W, B):
         if segments:
@@ -207,6 +215,9 @@ def main(argv=None):
         ("logL fwd", nograd(lambda: problem._logL_from_full(
             problem.embed(x)))),
         ("logL fwd+bwd", logL_fwd_bwd(problem)),
+        ("logL fwd, unfused chain", nograd(lambda: unfused._logL_from_full(
+            unfused.embed(x)))),
+        ("logL fwd+bwd, unfused chain", logL_fwd_bwd(unfused)),
         ("logL fwd+bwd, per-walker background", logL_fwd_bwd(per_walker)),
         ("logP fwd+bwd", logP_fwd_bwd),
         ("logparts_and_grad", lambda: problem.logparts_and_grad(x)),
@@ -241,6 +252,17 @@ def main(argv=None):
                 "ab_per_walker_bg"):
         steps[key].append(step_ms(per_walker if "walker" in key else problem,
                                   True))
+    peak = {}
+    for key, f in (("mala_step adaptive",
+                    dict(layers)["mala_step adaptive"]),
+                   ("logL fwd+bwd", logL_fwd_bwd(problem)),
+                   ("logL fwd+bwd, unfused chain", logL_fwd_bwd(unfused))):
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        f()
+        torch.cuda.synchronize(dev)
+        peak[key] = torch.cuda.max_memory_allocated(dev) / 2**20
     for row, (_, f) in zip(rows, layers):
         row["device_ms"], row["launches"], row["span_ms"] = _device_ms(
             f, args.reps, dev)
@@ -258,6 +280,8 @@ def main(argv=None):
           f"{steps['adaptive']:.3f} ms, frozen {steps['frozen']:.3f} ms; "
           f"device idle share of the adaptive step "
           f"{1.0 - step_dev / steps['adaptive']:.3f}")
+    print("peak device memory (MiB, from a reset): "
+          + ", ".join(f"{k} {v:.1f}" for k, v in peak.items()))
     print("A/B of the background's form, adaptive ms/step in the order "
           "per-walker, fixed-once, fixed-once, per-walker: "
           f"{steps['ab_per_walker_bg'][0]:.3f}, "
@@ -271,7 +295,7 @@ def main(argv=None):
         "problem": args.problem, "model": problem.model_meta["name"],
         "temps": args.temps,
         "chains": args.chains, "n_bins": int(nu.shape[0]), "layers": rows,
-        "step_host_ms": steps,
+        "step_host_ms": steps, "peak_mib": peak,
         "idle_share": 1.0 - step_dev / steps["adaptive"]}, indent=1))
     return 0
 

@@ -75,7 +75,8 @@ def test_tiny_bench_line(monkeypatch, flags):
         precision)
     # the plain versions ran: no kernel launched on the CPU
     assert d["launches_per_step"] == {
-        f"lorentz_{K.launch_key(k, precision)}": 0.0 for k in ("fwd", "bwd")}
+        f"lorentz_{K.launch_key(k, precision)}": 0.0
+        for k in ("fwd_chi22p", "bwd")}
     mesh = {"mesh1x1_gspmd_ratio", "mesh1x1_shardmap_ratio"}
     if "--profile" in flags:
         assert PROFILED <= set(d) and not mesh & set(d)
