@@ -32,15 +32,23 @@ older one's) inside one job on one card, in turns: A B B A.
 regimes, the demo's spectrum and background through the model's own hook):
 held to the unfused forward kernel plus the plain chain (logL and the
 gradients in H, C, W, B and the white level, then in a per-bin background),
-and timed alone against the unfused forward alone plus the chain's forward,
-and through the package forward and backward against the unfused path.
+and timed alone against the unfused forward alone (the epilogue's cost is
+the difference) and plus the chain's forward, and through the package
+forward and backward against the unfused path; beside the bound stands the
+MUFU floor (`mufu_floor_ms`).
 
 `--sass` writes `cuobjdump -sass` of the build beside the JSON and prints,
-per kernel instantiation, the opcode counts of every loop that holds two or
-more reciprocals (`MUFU`) or a tensor-core sum (`HMMA`): a loop's dispatch
+per kernel instantiation, its registers a thread and bytes of local memory
+(`cuobjdump -res-usage`), its local-memory loads and stores (LDL / STL:
+spills), and the opcode counts of every loop that holds two or more
+reciprocals (`MUFU`) or a tensor-core sum (`HMMA`): a loop's dispatch
 slots per component-bin are its instruction count over the component-bins
-one pass covers (PERF.md section 6 gives the count for each loop).  Every
-time carries the card's name and power limit.
+one pass covers (PERF.md section 6 gives the count for each loop).  For a
+forward with the chi22p epilogue it prints the instructions and MUFU
+results the epilogue adds to the body of the same forward without it, in
+all and per (walker, bin) of a thread (static counts), and for every
+kernel a hash of its code, equal in two builds that compiled the same.
+Every time carries the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -48,6 +56,7 @@ from __future__ import annotations
 import argparse
 import collections
 import gc
+import hashlib
 import json
 import pathlib
 import re
@@ -65,6 +74,27 @@ from tamcmc_tpu_torch.ops import lorentzian_kernel as K
 from tamcmc_tpu_torch.sampler.mala import default_init_scales
 
 C = 128                   # walkers per temperature in every slice
+FWD_R = 4                 # bins per forward thread (csrc/lorentzian.cu;
+                          # not the package's: this file also runs against
+                          # an older checkout in A/B turns)
+# MUFU results the forward computes, not what the function needs: one
+# reciprocal estimate per component-bin in both precisions (the bf16
+# stream's two per pair), which lorentzian_kernel.bound_ms counts as one
+# float32 operation; and one per (walker, bin) in the chi22p epilogue
+# (1 / m, from which its three quotients come; its logarithm is a
+# polynomial on the FMA pipe).
+MUFU_FWD = 1
+MUFU_EPILOGUE = 1
+
+
+def mufu_floor_ms(bt, n, comp_bins, chi22p=False):
+    """Least time of the forward's MUFU results on an H100: MUFU_FWD per
+    (walker, component-bin) and, with the chi22p epilogue, MUFU_EPILOGUE per
+    (walker, bin), over lorentzian_kernel.PEAK_MUFU.  A floor of this design
+    (one hardware reciprocal estimate a profile value), not of the
+    function."""
+    mufu = bt * (MUFU_FWD * comp_bins + (MUFU_EPILOGUE * n if chi22p else 0))
+    return 1e3 * mufu / K.PEAK_MUFU
 
 
 def demo_components(problem, n_walkers, rng, dev):
@@ -399,25 +429,31 @@ def _kernel_label(mangled):
     return f"{m.group(1)}<{','.join(re.findall(r'L[bi](\d+)E', m.group(2)))}>"
 
 
-def _sass(path, out_file):
-    """Write cuobjdump -sass of `path` to `out_file`; return, per kernel,
-    the opcode counts of each loop (a backward branch and its target) that
-    holds at least two reciprocals or a tensor-core instruction:
-    {kernel: [{"instructions": n, "ops": {...}}]}."""
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    text = subprocess.run([tool, "-sass", str(path)], capture_output=True,
-                          text=True, check=True).stdout
-    out_file.write_text(text)
-    loops = {}
+def _parse_sass(text):
+    """Per kernel instantiation of `cuobjdump -sass` text: {"instructions"
+    (the body up to its closing self-branch, without the out-of-line
+    slow-path subroutines after it), "ops" (opcode counts of that body,
+    MUFU by function), "ldl", "stl" (local-memory loads and stores: spills),
+    "sha" (of the whole function's code: equal in two builds when the
+    compiler made the same code), "loops"}: "loops" lists, for each loop (a
+    backward branch and its target) that holds at least two reciprocals
+    (`MUFU`) or a tensor-core instruction, {"instructions": n, "ops":
+    {...}}."""
+    out = {}
     for func in re.split(r"\n\s*Function : ", text)[1:]:
         ins = [(int(m.group(1), 16), m.group(2)) for m in re.finditer(
-            r"^\s+/\*([0-9a-f]{4,5})\*/\s+(?:@!?U?P\d+\s+)?(.*?);", func,
+            r"^\s+/\*([0-9a-f]{4,5})\*/\s+(?:@!?U?P\w+\s+)?(.*?);", func,
             re.M)]
+        code = hashlib.sha256(" ".join(re.findall(
+            r"/\* (0x[0-9a-f]{16}) \*/", func)).encode()).hexdigest()[:16]
         at = {addr: i for i, (addr, _) in enumerate(ins)}
-        found = []
+        end, found = len(ins), []
         for i, (addr, op) in enumerate(ins):
             m = re.match(r"BRA\S*\s+(?:\S+,\s+)?0x([0-9a-f]+)", op)
-            if not m or int(m.group(1), 16) >= addr:
+            if not m or int(m.group(1), 16) > addr:
+                continue
+            if int(m.group(1), 16) == addr:      # the body's closing trap
+                end = min(end, i)
                 continue
             body = ins[at[int(m.group(1), 16)]:i + 1]
             ops = collections.Counter(
@@ -425,8 +461,103 @@ def _sass(path, out_file):
             if ops["MUFU"] >= 2 or ops["HMMA"]:
                 found.append({"instructions": len(body),
                               "ops": dict(ops.most_common())})
-        loops[_kernel_label(func.split("\n", 1)[0].strip())] = found
-    return loops
+        names = [o.split()[0] for _, o in ins[:end]]
+        ops = collections.Counter(
+            n if n.startswith("MUFU") else n.split(".")[0] for n in names)
+        out[_kernel_label(func.split("\n", 1)[0].strip())] = {
+            "instructions": end, "ops": dict(ops.most_common()),
+            "ldl": ops["LDL"], "stl": ops["STL"], "sha": code, "loops": found}
+    return out
+
+
+def _parse_res_usage(text):
+    """{kernel label: {"registers", "local_bytes", "shared_bytes"}} from
+    `cuobjdump -res-usage` text."""
+    return {_kernel_label(m.group(1)): {
+        "registers": int(m.group(2)), "local_bytes": int(m.group(4)),
+        "shared_bytes": int(m.group(3))} for m in re.finditer(
+            r"Function (\S+?):\s+REG:(\d+) STACK:\d+ SHARED:(\d+) "
+            r"LOCAL:(\d+)", text)}
+
+
+def _without_epilogue(label):
+    """(the forward without the chi22p epilogue that `label` is measured
+    against, its walkers a block) for a forward with it, else None: one
+    template with a CHI argument (`<..., 1>` against `<..., 0>`), or the
+    kernels of their own (`lorentz_fwd_chi22p_kernel<W>` against
+    `lorentz_fwd_kernel<0,W>`, `lorentz_fwd_bf16_chi22p_kernel<W>` against
+    `lorentz_fwd_bf16_kernel<W>`)."""
+    m = re.fullmatch(r"(lorentz_fwd(?:_bf16)?_kernel)<(.*),1>", label)
+    if m:
+        return f"{m.group(1)}<{m.group(2)},0>", int(m.group(2).split(",")[-1])
+    m = re.fullmatch(r"lorentz_fwd(_bf16)?_chi22p_kernel<(\d+)>", label)
+    if m:
+        wpb = m.group(2)
+        return (f"lorentz_fwd_bf16_kernel<{wpb}>" if m.group(1)
+                else f"lorentz_fwd_kernel<0,{wpb}>"), int(wpb)
+    return None
+
+
+def _epilogues(kernels):
+    """The chi22p epilogue's cost from the SASS of each forward with it
+    against the same forward without it (`_without_epilogue`): instructions
+    and MUFU results added to the body, in all and per (walker, bin) of a
+    thread (WPB x FWD_R).  Static counts: the load paths of a ragged tile
+    and the slow path of the quotients are in the body, so they overstate
+    what one thread runs."""
+    out = {}
+    for label, k in kernels.items():
+        pair = _without_epilogue(label)
+        if not pair or pair[0] not in kernels or "ops" not in k:
+            continue
+        base = kernels[pair[0]]
+        per = pair[1] * FWD_R
+        mufu = {op: n - base["ops"].get(op, 0) for op, n in k["ops"].items()
+                if op.startswith("MUFU")}
+        added = k["instructions"] - base["instructions"]
+        out[label] = {"walker_bins": per, "instructions": added,
+                      "mufu": mufu,
+                      "instructions_per_walker_bin": added / per,
+                      "mufu_per_walker_bin": sum(mufu.values()) / per}
+    return out
+
+
+def _sass(path, out_file):
+    """Write `cuobjdump -sass` of `path` to `out_file` and return per kernel
+    instantiation its registers and local memory (`cuobjdump -res-usage`),
+    its SASS counts (`_parse_sass`) and, for a forward with the chi22p
+    epilogue, the epilogue's (`_epilogues`, under "epilogue")."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+
+    def run(flag):
+        return subprocess.run([tool, flag, str(path)], capture_output=True,
+                              text=True, check=True).stdout
+    text = run("-sass")
+    out_file.write_text(text)
+    kernels = _parse_sass(text)
+    for label, res in _parse_res_usage(run("-res-usage")).items():
+        kernels.setdefault(label, {}).update(res)
+    for label, epi in _epilogues(kernels).items():
+        kernels[label]["epilogue"] = epi
+    return kernels
+
+
+def _print_sass(kernels):
+    for kern, k in kernels.items():
+        print(f"sass {kern}: {k.get('registers')} registers, "
+              f"{k.get('local_bytes')} bytes local, {k.get('ldl')} LDL / "
+              f"{k.get('stl')} STL, {k.get('instructions')} instructions, "
+              f"code {k.get('sha')}")
+        epi = k.get("epilogue")
+        if epi:
+            print(f"sass {kern}: epilogue +{epi['instructions']} "
+                  f"instructions, MUFU {epi['mufu']}: "
+                  f"{epi['instructions_per_walker_bin']:.2f} instructions "
+                  f"and {epi['mufu_per_walker_bin']:.2f} MUFU a (walker, "
+                  f"bin) over {epi['walker_bins']} a thread")
+        for loop in k.get("loops", ()):
+            print(f"sass {kern}: loop of {loop['instructions']} "
+                  f"instructions {loop['ops']}")
 
 
 def _max_cover(lo, hi, n):
@@ -475,12 +606,15 @@ def _chi22p_regime(name, dev, rng, precisions, a, smi):
         def through(f, leaves=leaves):
             return lambda: torch.autograd.grad(f(*leaves).sum(), leaves)
         launch[f"{prec} fused kernel"] = fwd_chi
+        launch[f"{prec} unfused kernel"] = fwd
         launch[f"{prec} unfused kernel + chain"] = unfused_alone
         launch[f"{prec} fused fwd+bwd"] = through(fused)
         launch[f"{prec} unfused + chain fwd+bwd"] = through(unfused)
         reg["runs"].update({k: [] for k in launch if k.startswith(prec)})
         reg[f"{prec} bound_ms"], reg[f"{prec} bound_by"] = K.bound_ms(
             "fwd_chi22p", bt, nc, n, comp_bins, precision=prec)
+        reg[f"{prec} mufu_floor_ms"] = mufu_floor_ms(bt, n, comp_bins,
+                                                     chi22p=True)
     order = list(launch)
     torch.cuda.reset_peak_memory_stats()
     for turn in range(a.turns):
@@ -491,7 +625,8 @@ def _chi22p_regime(name, dev, rng, precisions, a, smi):
               f"{' '.join(f'{t:.4f}' for t in times)} ms  [{smi}]")
     for prec in precisions:
         print(f"chi22p {name} {prec}: bound {reg[f'{prec} bound_ms']:.4f} ms "
-              f"by {reg[f'{prec} bound_by']}; "
+              f"by {reg[f'{prec} bound_by']}, MUFU floor "
+              f"{reg[f'{prec} mufu_floor_ms']:.4f} ms; "
               + "; ".join(f"{k}: logL max rel {v['max_rel_err']:.2e}, grads "
                           f"max rel {v['grad_max_rel_err']:.2e}"
                           for k, v in reg.items()
@@ -536,12 +671,8 @@ def main(argv=None):
     print(f"reciprocal: {result['rcp_mismatches']} floats in [2^-126, 2^125]"
           " differ from the correctly rounded 1/y")
     if a.sass:
-        loops = result["sass_loops"] = _sass(
-            info["path"], out_path.with_suffix(".sass"))
-        for kern, found in loops.items():
-            for loop in found:
-                print(f"sass {kern}: loop of {loop['instructions']} "
-                      f"instructions {loop['ops']}")
+        result["sass"] = _sass(info["path"], out_path.with_suffix(".sass"))
+        _print_sass(result["sass"])
 
     rng = np.random.default_rng(0)
     if a.chi22p:

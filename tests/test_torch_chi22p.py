@@ -24,10 +24,20 @@ unfused chain.  The tests hold
     reduction order
     (lorentzian_kernel.chi22p_tile_sums, per-(walker, tile) records added
     in tile order) over grids with gaps and a ragged last tile against
-    torch.sum within 1e-5 relative.
+    torch.sum within 1e-5 relative;
+  * the epilogue's quotients (csrc/lorentzian.cu quot_rcp3: one
+    reciprocal, the product and two corrections by the residual, each fma
+    rounded once) replayed in numpy: s / m and (s / m) / m equal the IEEE
+    quotients bit for bit over every significand of m for numerators near
+    1, near 2, beside midpoints and elsewhere, at the corners of the range
+    where the fast path is proven, and past it (the IEEE divisions); and
+    t and g through them at M below the floor, +inf, NaN and S = 0 against
+    the chain (g bit for bit).
 """
 
 import dataclasses
+import pathlib
+import re
 
 import numpy as np
 import pytest
@@ -363,9 +373,14 @@ def test_epilogue_reduction_replay(n, tile):
     logL = L.lorentzian_chi22p(nu, spec, H, C_, W, B, plan, None, white)
     dwhite, = torch.autograd.grad(logL.sum(), white)
     modes = L.sum_lorentzians_segments_plain(nu, H, C_, W, B, plan.segments)
-    t, g = _epilogue(modes.numpy(), spec.numpy(),
-                     np.broadcast_to(white.detach().numpy(), modes.shape))
-    ts, gs = K.chi22p_tile_sums(t, g, tile)
+    bg = np.broadcast_to(white.detach().numpy(), modes.shape)
+    _, g = _epilogue(modes.numpy(), spec.numpy(), bg)
+    # the kernel's t: per thread the sum of its bins' logarithms, then its
+    # bins' quotients S / m (the IEEE ones)
+    M = (modes.numpy() + bg).astype(np.float32)
+    m = np.where(M < np.float32(1e-12), np.float32(1e-12), M)
+    ts, gs = K.chi22p_tile_sums(spec.numpy() / m, g, tile,
+                                _log_sums(m, tile))
     assert ts.dtype == gs.dtype == np.float32
     np.testing.assert_allclose(-ts, logL.detach().numpy(), rtol=1e-5)
     np.testing.assert_allclose(gs, torch.as_tensor(g).sum(-1).numpy(),
@@ -384,6 +399,12 @@ def test_replay_adds_in_the_kernels_order():
     t[0, tile] = 3.0                    # tile 1
     ts, _ = K.chi22p_tile_sums(t, t, tile)
     assert ts[0] == np.float32(4.0)
+    # a thread's head (its logarithms' sum) comes before its bins' terms
+    head = np.zeros((1, 2 * tile // K.FWD_R), np.float32)
+    head[0, 0] = 1e8
+    t[0, 0], t[0, 1] = -1e8, 1.0
+    ts, _ = K.chi22p_tile_sums(t, t, tile, head)
+    assert ts[0] == np.float32(5.0)
     # bins past N add nothing; an all-zero grid sums to zero
     ts, gs = K.chi22p_tile_sums(np.zeros((2, 10), np.float32),
                                 np.ones((2, 10), np.float32), tile)
@@ -424,3 +445,253 @@ def test_stacked_problem_routes_per_star_rows():
         star = dataclasses.replace(star, model_fn=p.model_fn)
         own, _ = star.log_parts(torch.as_tensor(x[s]))
         np.testing.assert_allclose(logL[s].numpy(), own.numpy(), rtol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# the epilogue's quotients: one reciprocal and two corrections
+# ---------------------------------------------------------------------------
+
+_CU = (pathlib.Path(__file__).resolve().parents[1] / "tamcmc_tpu_torch"
+       / "csrc" / "lorentzian.cu").read_text()
+
+
+def _cu_define(name):
+    """A #define of csrc/lorentzian.cu as a float32 (a hex value is the
+    bits of one)."""
+    value = re.search(rf"#define {name} (\S+)", _CU).group(1)
+    if value.startswith("0x"):
+        return np.uint32(int(value.rstrip("u"), 16)).view(np.float32)
+    return np.float32(value.rstrip("f"))
+
+
+_LOW28 = np.uint64((1 << 28) - 1)
+
+
+def _fma32(a, b, c):
+    """fmaf(a, b, c) of float32 arrays, rounded once.  The product is exact
+    in float64; the float64 sum's rounding error is kept exactly (two-sum),
+    and a sum that lands on a float32 midpoint is settled by that error's
+    sign, where rounding the float64 sum again would break the tie by
+    evenness (double rounding)."""
+    p = a.astype(np.float64) * b.astype(np.float64)
+    c = np.asarray(c, np.float32).astype(np.float64)
+    s = p + c
+    z = s - p
+    err = (p - (s - z)) + (c - z)
+    out = s.astype(np.float32)
+    # a float32 midpoint has at most 25 significant bits
+    tie = ((s.view(np.uint64) & _LOW28) == 0) & (err != 0)
+    if tie.any():
+        st, et, ft = s[tie], err[tie], out[tie]
+        other = np.nextafter(ft, np.where(st > ft, np.float32(np.inf),
+                                          np.float32(-np.inf)))
+        mid = (ft.astype(np.float64) + other.astype(np.float64)) / 2
+        flip = (st == mid) & ((et > 0) == (other > ft))
+        out[tuple(i[flip] for i in np.nonzero(tie))] = other[flip]
+    return out
+
+
+def _quot_rcp(a, m, r):
+    """csrc/lorentzian.cu quot_rcp: a r, then two corrections by the
+    residual, each fma rounded once."""
+    q = (a.astype(np.float64) * r.astype(np.float64)).astype(np.float32)
+    for _ in range(2):
+        q = _fma32(_fma32(-m, q, a), r, q)
+    return q
+
+
+def _quot_range(a):
+    """|a| in [2^-78, 2^86]: the numerators for which the header proves
+    quot_rcp exact (with m in [2^-40, 2^47])."""
+    a = np.abs(np.asarray(a, np.float32))
+    return (a >= np.float32(2.0 ** -78)) & (a <= np.float32(2.0 ** 86))
+
+
+def _spec_in_range(s):
+    """csrc/lorentzian.cu spec_in_range: |s| in [2^-31, 2^46], NaN out."""
+    lo, hi = (_cu_define(k).view(np.uint32)
+              for k in ("QUOT_S_LO", "QUOT_S_HI"))
+    bits = np.asarray(s, np.float32).view(np.uint32) & np.uint32(0x7fffffff)
+    return (bits - lo) <= (hi - lo)
+
+
+def _quotients(s, m):
+    """The epilogue's (1 / m, s / m, (s / m) / m): csrc/lorentzian.cu
+    quot_rcp3 from r = the correctly rounded 1 / m (which rcp_nr is on the
+    card for these m), and quot_ieee3, the IEEE divisions, where quot_fast
+    does not hold."""
+    s, m = np.broadcast_arrays(np.asarray(s, np.float32),
+                               np.asarray(m, np.float32))
+    with np.errstate(all="ignore"):
+        r = np.float32(1) / m
+        q = _quot_rcp(s, m, r)
+        q2 = _quot_rcp(q, m, r)
+        fast = (m <= _cu_define("QUOT_M_MAX")) & _spec_in_range(s)
+        ieee = s / m
+        return (np.where(fast, r, np.float32(1) / m), np.where(fast, q, ieee),
+                np.where(fast, q2, ieee / m))
+
+
+def _same_bits(a, b):
+    return np.array_equal(np.asarray(a, np.float32).view(np.uint32),
+                          np.asarray(b, np.float32).view(np.uint32))
+
+
+def _ulps(x, k):
+    """x moved by k float32 ulps (toward +inf for k > 0)."""
+    return (np.float32(x).view(np.uint32) + np.int64(k)).astype(
+        np.uint32).view(np.float32)
+
+
+_NUMERATORS = {
+    "near 1": [1.0, _ulps(1.0, 1), _ulps(1.0, 2)],
+    "near 2": [_ulps(2.0, -1), _ulps(2.0, -2), _ulps(2.0, -3)],
+    "near midpoints": [_ulps(1.5, -1), _ulps(1.5, 1), _ulps(1.75, -1)],
+    "spread": [4.0 / 3.0, 1.6180340, 0.371],
+}
+
+
+@pytest.mark.parametrize("group", sorted(_NUMERATORS))
+def test_epilogue_quotients_are_the_ieee_quotients(group):
+    """s / m and (s / m) / m on the epilogue's path (the reciprocal, its
+    product and two corrections) equal the IEEE quotients bit for bit for
+    every significand of m (2^23 values in [1, 2)), for numerators whose
+    significands lie near 1, near 2, beside midpoints and elsewhere."""
+    m_all = (np.arange(2 ** 23, dtype=np.uint32)
+             | np.uint32(0x3F800000)).view(np.float32)
+    r_all = np.float32(1) / m_all
+    for s in _NUMERATORS[group]:
+        # s / m lies in (s / 2, s]: the fast path's range for both
+        assert _quot_range(np.float32([s, np.float32(s) / 2])).all()
+        for lo in range(0, m_all.size, 2 ** 16):     # cache-sized slices
+            m, r = m_all[lo:lo + 2 ** 16], r_all[lo:lo + 2 ** 16]
+            a = np.full(m.shape, np.float32(s))
+            want = a / m
+            assert _same_bits(_quot_rcp(a, m, r), want), (s, lo)
+            assert _same_bits(_quot_rcp(want, m, r), want / m), (s, lo)
+
+
+def test_epilogue_quotients_at_the_range_ends():
+    """The proof scales the significands' result by powers of two while r,
+    the quotient and the residual stay normal: random significand pairs at
+    the four corners of the proven range (numerator 2^-78 or 2^85 times a
+    significand, m at the floor's binade or 2^46 times one) still give the
+    IEEE quotients; the kernel's test on S (|S| in [2^-31, 2^46]) keeps
+    both numerators in that range; past its ends (a zero, subnormal or
+    huge numerator, m above 2^47, +inf, NaN) the IEEE divisions run, so the
+    three results are the IEEE ones everywhere."""
+    rng = np.random.default_rng(12)
+    sig = (rng.integers(0, 2 ** 23, (2, 4096), dtype=np.uint32)
+           | np.uint32(0x3F800000)).view(np.float32)
+    m_max = _cu_define("QUOT_M_MAX")
+    assert m_max == np.float32(2.0 ** 47)
+    # the kernel's test on S keeps both numerators, S and S / m, in range
+    ends = np.float32([2.0 ** -31, 2.0 ** 46, -(2.0 ** 46)])
+    assert _spec_in_range(ends).all()
+    assert not _spec_in_range(np.nextafter(ends, np.float32(0))[:1]).any()
+    assert not _spec_in_range(np.nextafter(ends[1:], np.float32(
+        np.inf) * np.sign(ends[1:]))).any()
+    for m in (np.float32(1e-12), m_max):
+        assert _quot_range(ends / m).all()
+    for a_exp in (-78, 85):
+        for m_exp in (-39, 46):
+            a = sig[0] * np.float32(2.0 ** a_exp)
+            m = sig[1] * np.float32(2.0 ** m_exp)
+            assert (m >= np.float32(1e-12)).all() and (m <= m_max).all()
+            r = np.float32(1) / m
+            want = a / m
+            assert _quot_range(a).all()
+            assert (np.abs(want) >= np.float32(2.0 ** -125)).all()
+            assert _same_bits(_quot_rcp(a, m, r), want)
+            ok = _quot_range(want)
+            assert _same_bits(_quot_rcp(want[ok], m[ok], r[ok]),
+                              want[ok] / m[ok])
+    nums = np.array([0.0, -0.0, 1e-40, _ulps(2.0 ** -31, -1), 2.0 ** -31,
+                     2.0 ** 46, _ulps(2.0 ** 46, 1), 3e38, -1.75, 1.3,
+                     np.inf, np.nan], np.float32)
+    ms = np.array([1e-12, 0.37, 1.0, 3.7, m_max, _ulps(m_max, 1),
+                   2.0 ** 125, np.inf, np.nan], np.float32)
+    s, m = np.meshgrid(nums, ms)
+    r, q, q2 = _quotients(s, m)
+    with np.errstate(all="ignore"):
+        want = s / m
+        for got, ieee in ((r, np.float32(1) / m), (q, want),
+                          (q2, want / m)):
+            nan = np.isnan(ieee)
+            assert (np.isnan(got) == nan).all()
+            assert _same_bits(got[~nan], ieee[~nan])
+
+
+def test_epilogue_one_reciprocal_keeps_the_chains_gradient():
+    """The epilogue's t and g through its quotients, at M below the floor
+    (and 0, negative), at the floor, +inf, NaN and S = 0: g is autograd's
+    dlogL/dM of the chain bit for bit and t = ln m + S / m the chain's
+    term (its quotient bit for bit)."""
+    M = np.array([-5.0, 0.0, 1e-13, 1e-12, 2e-12, 0.5, 1.0, 37.5, 3e30,
+                  np.inf, np.nan], np.float32)
+    S = np.array([0.0, 1.3, 2.0 ** -80, 6.1], np.float32)
+    M, S = (a.ravel() for a in np.meshgrid(M, S))
+    m = np.where(M < np.float32(1e-12), np.float32(1e-12), M)
+    r, q, q2 = _quotients(S, m)
+    with np.errstate(all="ignore"):
+        g = np.where(M >= np.float32(1e-12), (q2 - r).astype(np.float32),
+                     np.float32(0))
+        t = (np.log(m) + q).astype(np.float32)
+    Mt = torch.as_tensor(M).requires_grad_(True)
+    logL = likelihood_chi22p(torch.as_tensor(S), Mt)
+    dM, = torch.autograd.grad(logL, Mt)
+    assert _same_bits(g, dM.numpy())
+    mt = torch.as_tensor(m)
+    want_q = (torch.as_tensor(S) / mt).numpy()
+    nan = np.isnan(want_q)
+    assert (np.isnan(q) == nan).all() and _same_bits(q[~nan], want_q[~nan])
+    want_t = (torch.log(mt).numpy() + want_q).astype(np.float32)
+    tn = np.isnan(want_t)
+    assert (np.isnan(t) == tn).all()
+    np.testing.assert_allclose(t[~tn], want_t[~tn], rtol=1.2e-7)
+    assert np.isinf(t[np.isinf(M)]).all() and (g[np.isinf(M)] == 0).all()
+    assert (g[np.isnan(M)] == 0).all()
+
+
+def _log_sums(m, tile):
+    """csrc/lorentzian.cu log_sum of each forward thread's FWD_R bins of m
+    (Bt, N) float32, finite and >= 1e-12; bins past N count as m = 1 (ln 1
+    = 0): the product of the significands in order, the exponents' sum,
+    logf (here the correctly rounded logarithm) and one fma with ln 2 in
+    float32.  Returns (Bt, threads of the grid)."""
+    bt, n = m.shape
+    pad = np.ones((bt, -(-n // tile) * tile), np.float32)
+    pad[:, :n] = m
+    u = pad.reshape(bt, -1, K.FWD_R).view(np.uint32)
+    sig = ((u & np.uint32(0x7FFFFF)) | np.uint32(0x3F800000)).view(
+        np.float32)
+    p = sig[..., 0]
+    for r in range(1, K.FWD_R):
+        p = p * sig[..., r]                 # float32, rounded each time
+    e = (u >> np.uint32(23)).astype(np.int64).sum(-1) - 127 * K.FWD_R
+    logp = np.log(p.astype(np.float64)).astype(np.float32)
+    return _fma32(e.astype(np.float32), np.full(e.shape, _cu_define("LN2")),
+                  logp)
+
+
+def test_log_sum_within_its_bound():
+    """One logarithm for a thread's four bins (log_sum) against float64's
+    sum of the four: within the header's bound, 3 x 2^-24 + 2^-22 + |E| x
+    2e-9 + half an ulp of the result (E the exponents' sum), over m from
+    the floor 1e-12 to 2^47, clustered near 1 and equal."""
+    assert abs(float(_cu_define("LN2")) - np.log(2.0)) < 2e-9
+    rng = np.random.default_rng(7)
+    wide = np.exp(rng.uniform(np.log(1e-12), np.log(2.0 ** 47),
+                              (4096, 64))).astype(np.float32)
+    near1 = (1 + rng.normal(0, 1e-3, (4096, 64))).astype(np.float32)
+    equal = np.repeat(wide[:, :16], 4, axis=1)
+    floor = np.full((16, 64), np.float32(1e-12))
+    for m in (wide, near1, equal, floor):
+        got = _log_sums(m, m.shape[1]).astype(np.float64)
+        want = np.log(m.astype(np.float64)).reshape(
+            m.shape[0], -1, K.FWD_R).sum(-1)
+        u = m.reshape(m.shape[0], -1, K.FWD_R).view(np.uint32)
+        e = (u >> np.uint32(23)).astype(np.int64).sum(-1) - 127 * K.FWD_R
+        bound = (3 * 2.0 ** -24 + 2.0 ** -22 + np.abs(e) * 2e-9
+                 + 0.5 * np.spacing(np.abs(got).astype(np.float32)))
+        assert (np.abs(got - want) <= bound).all()

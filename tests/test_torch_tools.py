@@ -122,3 +122,81 @@ def test_kernel_ab_signed_error_and_cover():
     assert kernel_ab._max_cover(lo, hi, 10) == 2
     assert kernel_ab._max_cover(np.zeros(3, np.int64),
                                 np.full(3, 8), 8) == 3
+
+
+_SASS = """
+	code for sm_90a
+		Function : _Z18lorentz_fwd_kernelILb0ELi4ELb1EEvPKf
+	.headerflags	@"EF_CUDA_SM90"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;      /* 0x00000a00ff017b82 */
+        /*0010*/                   MUFU.RCP R2, R3 ;           /* 0x0000000003027308 */
+        /*0020*/                   MUFU.RCP R4, R5 ;           /* 0x0000000005047308 */
+        /*0030*/              @!P0 BRA 0x10 ;                  /* 0x0000000000008947 */
+        /*0040*/                   MUFU.RCP R2, R3 ;           /* 0x0000000003027308 */
+        /*0050*/                   STL [R1], R2 ;              /* 0x0000000201007387 */
+        /*0060*/                   EXIT ;                      /* 0x000000000000794d */
+        /*0070*/                   BRA 0x70;                   /* 0xfffffffc00fc7947 */
+        /*0080*/                   MUFU.RSQ R2, R3 ;           /* 0x0000000003027308 */
+		Function : _Z18lorentz_fwd_kernelILb0ELi4ELb0EEvPKf
+	.headerflags	@"EF_CUDA_SM90"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;      /* 0x00000a00ff017b82 */
+        /*0010*/                   MUFU.RCP R2, R3 ;           /* 0x0000000003027308 */
+        /*0020*/                   MUFU.RCP R4, R5 ;           /* 0x0000000005047308 */
+        /*0030*/              @!P0 BRA 0x10 ;                  /* 0x0000000000008947 */
+        /*0040*/                   EXIT ;                      /* 0x000000000000794d */
+        /*0050*/                   BRA 0x50;                   /* 0xfffffffc00fc7947 */
+"""
+
+_RES_USAGE = """Resource usage:
+ Common:
+  GLOBAL:0
+ Function _Z18lorentz_fwd_kernelILb0ELi4ELb1EEvPKf:
+  REG:64 STACK:0 SHARED:31488 LOCAL:0 CONSTANT[0]:532 TEXTURE:0 SURFACE:0 SAMPLER:0
+"""
+
+
+def test_kernel_ab_counts_the_epilogue_in_the_sass():
+    """`--sass`: the body ends at its closing self-branch (the slow path's
+    subroutine after it is not counted), a loop with two MUFU is listed,
+    LDL / STL and the registers are read, and the epilogue is the CHI
+    instantiation's body less the same instantiation's without it, per
+    (walker, bin) of a thread (4 walkers x 4 bins)."""
+    k = kernel_ab._parse_sass(_SASS)
+    chi, plain = k["lorentz_fwd_kernel<0,4,1>"], k["lorentz_fwd_kernel<0,4,0>"]
+    assert chi["instructions"] == 7 and plain["instructions"] == 5
+    assert chi["stl"] == 1 and chi["ldl"] == 0 and plain["stl"] == 0
+    assert chi["ops"]["MUFU.RCP"] == 3 and "MUFU.RSQ" not in chi["ops"]
+    assert [loop["instructions"] for loop in chi["loops"]] == [3]
+    # the code's hash tells two builds of one kernel apart
+    assert chi["sha"] != plain["sha"]
+    again = kernel_ab._parse_sass(_SASS.replace("_Z18", "_Z18", 1))
+    assert again["lorentz_fwd_kernel<0,4,0>"]["sha"] == plain["sha"]
+    res = kernel_ab._parse_res_usage(_RES_USAGE)
+    assert res == {"lorentz_fwd_kernel<0,4,1>": {
+        "registers": 64, "local_bytes": 0, "shared_bytes": 31488}}
+    epi = kernel_ab._epilogues(k)
+    assert list(epi) == ["lorentz_fwd_kernel<0,4,1>"]
+    # the kernels of their own with the epilogue and their siblings
+    assert kernel_ab._without_epilogue("lorentz_fwd_chi22p_kernel<4>") == (
+        "lorentz_fwd_kernel<0,4>", 4)
+    assert kernel_ab._without_epilogue(
+        "lorentz_fwd_bf16_chi22p_kernel<1>") == ("lorentz_fwd_bf16_kernel<1>",
+                                                  1)
+    assert kernel_ab._without_epilogue("lorentz_fwd_kernel<0,4,0>") is None
+    assert kernel_ab._without_epilogue("lorentz_bwd_kernel<0,1>") is None
+    assert epi["lorentz_fwd_kernel<0,4,1>"] == {
+        "walker_bins": 16, "instructions": 2, "mufu": {"MUFU.RCP": 1},
+        "instructions_per_walker_bin": 2 / 16, "mufu_per_walker_bin": 1 / 16}
+
+
+def test_kernel_ab_mufu_floor():
+    """One MUFU result per component-bin (and per walker-bin with the
+    epilogue) over 16 a clock per SM: 1.126 ms at kepler_full's 1,280
+    walkers and 3,682,749 component-bins, above its operations bound."""
+    floor = kernel_ab.mufu_floor_ms(1280, 120000, 3682749)
+    assert floor == pytest.approx(1280 * 3682749 / (67e12 / 16) * 1e3)
+    assert floor == pytest.approx(1.1257, abs=1e-4)
+    assert kernel_ab.mufu_floor_ms(1280, 120000, 3682749, chi22p=True) \
+        == pytest.approx(floor + 1e3 * 1280 * 120000 / (67e12 / 16))
+    from tamcmc_tpu_torch.ops import lorentzian_kernel as K
+    assert floor > K.bound_ms("fwd", 1280, 224, 120000, 3682749)[0]
