@@ -48,7 +48,7 @@ machine itself; with it, a launcher (torchrun) did.  Rank 0 prints and
 writes the run's files, each rank its shard of the cold rung's samples.
 `--precision bf16` runs the Lorentzian profile stream in bfloat16 (the kernels' bf16
 instantiation on a CUDA device); `--precision f64` runs the whole sampler in
-float64 on `--device cpu` and is refused on a CUDA device.  `batch` runs a
+float64, on a CUDA device through the kernels' float64 instantiation.  `batch` runs a
 presets table of stars (TOML `[[star]]` rows or a provisional
 config_presets.cfg, io/refconfig.py): one `run` per star into its outdir,
 or with `--stacked` every star in one sampler whose step leads with a star
@@ -293,19 +293,6 @@ def _check_resume_provenance(ckpt_path, **expect):
             f"with --{flag} {written} (or start a fresh outdir).")
 
 
-def _refuse_precision_on(device, precision):
-    """Exit, before any work, when `precision` cannot run on `device`: f64
-    is the reference's CPU validation mode, and the Lorentzian kernels of a
-    CUDA device are float32 and bf16 (a CUDA tensor never takes the plain
-    path instead)."""
-    if precision == "f64" and torch.device(device).type == "cuda":
-        raise SystemExit(
-            f"--precision f64 --device {device}: f64 is a CPU validation "
-            "mode (the whole sampler in float64); the Lorentzian kernels of "
-            "a CUDA device run float32 and bf16 only.  Run it with "
-            "--device cpu.")
-
-
 def _model_at_median(problem, theta0):
     """The model spectrum at the median of (E, C, Df) cold-rung records, on
     the problem's device (the forward kernel at one walker on a CUDA
@@ -482,7 +469,6 @@ def cmd_run(args):
     """`run`: a local fit, or one rank of a mesh fit, or (`--mesh` without
     `--distributed`) the launcher of a mesh fit's ranks."""
     precision = getattr(args, "precision", "f32")
-    _refuse_precision_on(args.device, precision)
     shape, runner = _mesh_flags(args)
     mesh_label = f"{shape[0]}x{shape[1]}" if shape else "none"
     ckpt = pathlib.Path(args.outdir) / "restore.npz"
@@ -1231,9 +1217,10 @@ def _parser() -> argparse.ArgumentParser:
                          "everything else float32: the kernels' bf16 "
                          "instantiation on a CUDA device, the plain torch "
                          "version on the cpu (the windowed sum stays "
-                         "float32).  f64: the whole sampler in float64, a "
-                         "validation mode of --device cpu; refused on a "
-                         "CUDA device, whose kernels are float32 and bf16")
+                         "float32).  f64: the whole sampler in float64 (the "
+                         "data stays the float32 draw, cast): the kernels' "
+                         "float64 instantiation on a CUDA device, the plain "
+                         "torch version on the cpu")
     pr.add_argument("--max-rows", type=int, default=40, dest="max_rows")
     pr.add_argument("--mesh",
                     help="run the fit over a TEMPSxCHAINS mesh of processes, "

@@ -2,6 +2,7 @@
 
     python -m tamcmc_tpu_torch.kernel_ab --out chiprun_out/kernel_ab.json
     python -m tamcmc_tpu_torch.kernel_ab --precision both --sass
+    python -m tamcmc_tpu_torch.kernel_ab --precision f64 [--chi22p]
 
 Regimes (the shapes `chip_smoke.py` and the demos' runs give the kernels):
 windowed 16x11x12,288; segment ms_global 768x54x40,000; dense subgiant_mixed
@@ -15,10 +16,13 @@ package's autograd wrapper (the runs "<precision> wrapper": the path a fit
 takes, host work per call included) and the roofline bound
 (`lorentzian_kernel.bound_ms`).
 
-`--precision f32 | bf16 | both` picks the instantiations (the windowed mode
-is float32 only).  Every instantiation is first held against the plain torch
-version of the same inputs and precision (run in 16-walker slices), its
-backward run twice and compared bitwise; beside the largest errors stands
+`--precision f32 | bf16 | f64 | both | all` picks the instantiations (both:
+f32 and bf16; all: the three; the windowed mode is float32 only).  f64 runs
+the float64 instantiation on the regime's inputs cast to double.  Every
+instantiation is first held against the plain torch version of the same
+inputs and precision (run in 16-walker slices; within 1e-4, float64 within
+1e-10), its backward run twice and compared bitwise; beside the largest
+errors stands
 the signed error toward zero, sum((got - plain) sign(plain)) / sum(|plain|)
 of the values and of each gradient: a negative reading that grows with the
 components a bin sums is the one-sided truncation of the tensor cores'
@@ -172,6 +176,35 @@ def regime_inputs(name, dev, rng):
 REGIMES = ("windowed", "segment ms_global", "dense subgiant_mixed",
            "segment kepler_full", "segment reduced flagship")
 CHI_REGIMES = REGIMES[1:]
+STREAMS = {"f32": ("f32",), "bf16": ("bf16",), "f64": ("f64",),
+           "both": ("f32", "bf16"), "all": ("f32", "bf16", "f64")}
+
+
+def plan_precision(prec):
+    """The plan's precision of a stream: f64 runs a plan in "f32" on
+    float64 tensors (the tensors' own type)."""
+    return "f32" if prec == "f64" else prec
+
+
+def tolerance(prec):
+    """What a run is held to against the plain version: |a - b| <= tol +
+    tol |b| for values, max |a - b| / max |b| <= tol for gradients."""
+    return 1e-10 if prec == "f64" else 1e-4
+
+
+def in_stream(inp, prec):
+    """`inp` with its floating tensors (and those of its tuples) in double
+    for the f64 stream, else `inp` itself."""
+    if prec != "f64":
+        return inp
+
+    def cast(v):
+        if torch.is_tensor(v) and v.is_floating_point():
+            return v.double()
+        if isinstance(v, tuple) and v and torch.is_tensor(v[0]):
+            return tuple(cast(t) for t in v)
+        return v
+    return {k: cast(v) for k, v in inp.items()}
 
 
 def chi22p_inputs(problem, n_walkers, rng, dev):
@@ -205,8 +238,10 @@ def chi22p_fns(inp, precision="f32", full_bg=False):
     routed fused likelihood (on the card the forward kernel with its
     epilogue), the unfused forward kernel plus the plain chain, and the
     plain version; bg_b is inp's bg_b (with bg_n) or, with `full_bg`, its
-    bg_full (no bg_n)."""
+    bg_full (no bg_n).  `precision` is the plan's (f64: "f32" on inp's
+    float64 tensors)."""
     from tamcmc_tpu_torch.stats.likelihoods import likelihood_chi22p
+    precision = plan_precision(precision)
     plan0, nu, spec = inp["plan"], inp["nu"], inp["spec"]
     if plan0.segments is not None:
         plan = K.segment_plan(plan0.segments, plan0.ncomp, plan0.n_bins,
@@ -281,59 +316,71 @@ def check_chi22p(label, inp, precision, full_bg, go, tol=1e-4):
 def prepare_chi22p(inp, precision="f32"):
     """The fused forward's launch (g written, as a fit's step writes it) on
     preallocated outputs, arguments converted once, with inp's bg_n and
-    bg_b; returns (fwd, logL, g)."""
+    bg_b; returns (fwd, logL, g).  f64 launches the float64 instantiation
+    on inp's float64 tensors."""
     nu, (H, Cc, W, B) = inp["nu"], inp["args"]
     bt, n = H.shape[0], nu.shape[0]
     lo, hi = inp["plan"].comp_lo, inp["plan"].comp_hi
-    plan = K.LorentzPlan(lo, hi, n, precision=precision)
+    plan = K.LorentzPlan(lo, hi, n, precision=plan_precision(precision))
     K._check(nu, (H, Cc, W, B), None, plan)
     spec = inp["spec"].reshape(1, n).contiguous()
     bg_n = inp["bg_n"].reshape(1, n).contiguous()
     bg_b = inp["bg_b"].reshape(bt).contiguous()
-    g = torch.empty((bt, n), dtype=torch.float32, device=nu.device)
-    partial = torch.empty((bt, plan.n_tiles, 2), dtype=torch.float32,
+    g = torch.empty((bt, n), dtype=nu.dtype, device=nu.device)
+    partial = torch.empty((bt, plan.n_tiles, 2), dtype=nu.dtype,
                           device=nu.device)
-    logL, gsum = (torch.empty(bt, dtype=torch.float32, device=nu.device)
+    logL, gsum = (torch.empty(bt, dtype=nu.dtype, device=nu.device)
                   for _ in range(2))
     t = plan.tensors(nu.device)[:5]
-    args = (*map(K._ptr, (nu, H, Cc, W, B, *t, spec, bg_n, bg_b, g, partial,
+    ptrs = (*map(K._ptr, (nu, H, Cc, W, B, *t, spec, bg_n, bg_b, g, partial,
                           plan.tickets(bt, nu.device, "fwd"), logL, gsum)),
-            bt, H.shape[1], n, plan.n_tiles, bt, 0,
-            int(precision == "bf16"), int(plan.wide_forward(bt)),
-            K._vec_ok(n, nu, spec, bg_n, g), K._stream(nu.device))
+            bt, H.shape[1], n, plan.n_tiles, bt, 0)
+    tail = (K._vec_ok(n, nu, spec, bg_n, g), K._stream(nu.device))
     lib = K._lib()
+    if precision == "f64":
+        launch = lib.lorentz_fwd_chi22p_f64
+        args = (*ptrs, int(plan.wide_forward(bt, K.FWD_W64)), *tail)
+    else:
+        launch = lib.lorentz_fwd_chi22p
+        args = (*ptrs, int(precision == "bf16"), int(plan.wide_forward(bt)),
+                *tail)
 
     def fwd(_keep=(plan, spec, bg_n, bg_b, g, partial, logL, gsum)):
-        K._raise_on(lib.lorentz_fwd_chi22p(*args), "lorentz_fwd_chi22p")
+        K._raise_on(launch(*args), "lorentz_fwd_chi22p")
     return fwd, logL, g
 
 
 def prepare(inp, precision="f32"):
-    """Plan, outputs and scratch for one regime's inputs in `precision`;
-    returns the (fwd, bwd) launch closures and the tensors they write."""
+    """Plan, outputs and scratch for one regime's inputs in `precision`
+    (f64: inp's tensors are float64); returns the (fwd, bwd) launch
+    closures and the tensors they write."""
     nu, (H, Cc, W, B), win, g = inp["nu"], inp["args"], inp["win"], inp["g"]
     bt = H.shape[0]
     n = nu.shape[0]
     lo, hi = inp["ranges"]
-    out = torch.empty((bt, n), dtype=torch.float32, device=nu.device)
+    out = torch.empty((bt, n), dtype=nu.dtype, device=nu.device)
     grads = tuple(torch.empty_like(H) for _ in range(4))
     plan = K.LorentzPlan(lo, hi, n, windowed=win is not None,
-                         precision=precision)
+                         precision=plan_precision(precision))
     K._check(nu, (H, Cc, W, B), win, plan)
     f_args = K.fwd_args(plan, nu, H, Cc, W, B, win, out)
-    plan_b = plan.for_walkers(bt)
+    f64 = precision == "f64"
+    # an older checkout's for_walkers takes no type (A/B turns)
+    plan_b = plan.for_walkers(bt, nu.dtype) if f64 else plan.for_walkers(bt)
     scratch = K.bwd_scratch(plan_b, bt, nu.device)
     b_args = K.bwd_args(plan_b, nu, g, H, Cc, W, B, win, scratch, grads)
     lib = K._lib()
+    fwd_fn, bwd_fn = ((lib.lorentz_fwd_f64, lib.lorentz_bwd_f64) if f64
+                      else (lib.lorentz_fwd, lib.lorentz_bwd))
 
     # the arguments are converted once, so a call costs the host little
     # more than the launch itself; the closures keep every tensor their
     # pointers name alive, whether or not the caller keeps the outputs
     def fwd(_keep=(plan, plan_b, scratch, out)):
-        K._raise_on(lib.lorentz_fwd(*f_args), "lorentz_fwd")
+        K._raise_on(fwd_fn(*f_args), "lorentz_fwd")
 
     def bwd(_keep=(plan_b, scratch, g, grads)):
-        K._raise_on(lib.lorentz_bwd(*b_args), "lorentz_bwd")
+        K._raise_on(bwd_fn(*b_args), "lorentz_bwd")
     return fwd, bwd, out, grads
 
 
@@ -370,7 +417,7 @@ def _plain(inp, precision, step=16):
                 for a in inp["args"]]
         out = inp["plain"](inp["nu"], *part,
                            *(w[lo:lo + step] for w in extra),
-                           precision=precision)
+                           precision=plan_precision(precision))
         grads.append(torch.autograd.grad(out, part, inp["g"][lo:lo + step]))
         outs.append(out.detach())
     return torch.cat(outs), [torch.cat(p) for p in zip(*grads)]
@@ -381,6 +428,7 @@ def _wrapper(inp, precision):
     forward without autograd, the backward of one retained graph."""
     extra = (inp["win"],) if inp["win"] is not None else ()
     leaves = [a.clone().requires_grad_(True) for a in inp["args"]]
+    precision = plan_precision(precision)
     out = inp["wrapper"](inp["nu"], *leaves, *extra, precision=precision)
 
     def fwd():
@@ -400,16 +448,18 @@ def _toward_zero(got, want):
                  / want.double().abs().sum().clamp_min(1e-300))
 
 
-def _check_against(label, out, grads, first, want_out, want_grads):
+def _check_against(label, out, grads, first, want_out, want_grads,
+                   tol=1e-4):
     """Errors of one instantiation against the plain version; raises past
-    chip_smoke's tolerance or if two backward runs differ in any bit."""
+    chip_smoke's tolerance `tol` or if two backward runs differ in any
+    bit."""
     val_err = float((out - want_out).abs().max())
     val_ok = bool(((out - want_out).abs()
-                   <= 1e-4 + 1e-4 * want_out.abs()).all())
+                   <= tol + tol * want_out.abs()).all())
     rel = max(float((x - y).abs().max() / (y.abs().max() + 1e-30))
               for x, y in zip(grads, want_grads))
     same = all(torch.equal(x, y) for x, y in zip(first, grads))
-    if not (val_ok and rel <= 1e-4 and same):
+    if not (val_ok and rel <= tol and same):
         raise AssertionError(
             f"{label}: values max abs err {val_err}, grads max rel err "
             f"{rel}, repeatable {same}")
@@ -486,14 +536,15 @@ def _without_epilogue(label):
     template with a CHI argument (`<..., 1>` against `<..., 0>`), or the
     kernels of their own (`lorentz_fwd_chi22p_kernel<W>` against
     `lorentz_fwd_kernel<0,W>`, `lorentz_fwd_bf16_chi22p_kernel<W>` against
-    `lorentz_fwd_bf16_kernel<W>`)."""
+    `lorentz_fwd_bf16_kernel<W>`, `lorentz_fwd_f64_chi22p_kernel<W>`
+    against `lorentz_fwd_f64_kernel<W>`)."""
     m = re.fullmatch(r"(lorentz_fwd(?:_bf16)?_kernel)<(.*),1>", label)
     if m:
         return f"{m.group(1)}<{m.group(2)},0>", int(m.group(2).split(",")[-1])
-    m = re.fullmatch(r"lorentz_fwd(_bf16)?_chi22p_kernel<(\d+)>", label)
+    m = re.fullmatch(r"lorentz_fwd(_bf16|_f64)?_chi22p_kernel<(\d+)>", label)
     if m:
         wpb = m.group(2)
-        return (f"lorentz_fwd_bf16_kernel<{wpb}>" if m.group(1)
+        return (f"lorentz_fwd{m.group(1)}_kernel<{wpb}>" if m.group(1)
                 else f"lorentz_fwd_kernel<0,{wpb}>"), int(wpb)
     return None
 
@@ -576,7 +627,8 @@ def _chi22p_regime(name, dev, rng, precisions, a, smi):
     through the package (forward and backward), in turns."""
     from tamcmc_tpu_torch.stats.likelihoods import likelihood_chi22p
     problem, n_walkers = regime_problem(name, dev)
-    inp = chi22p_inputs(problem, n_walkers, rng, dev)
+    inp32 = chi22p_inputs(problem, n_walkers, rng, dev)
+    inp = inp32
     del problem
     (H, Cc, W, B), nu, spec = inp["args"], inp["nu"], inp["spec"]
     bt, nc, n = H.shape[0], H.shape[1], nu.shape[0]
@@ -587,16 +639,20 @@ def _chi22p_regime(name, dev, rng, precisions, a, smi):
            "runs": {}}
     launch = {}
     for prec in precisions:
+        inp = in_stream(inp32, prec)
         for full_bg in (False, True):
             key = f"check {prec} bg_b {'(Bt, N)' if full_bg else '(Bt,)'}"
-            reg[key] = check_chi22p(f"{name} {key}", inp, prec, full_bg, go)
+            reg[key] = check_chi22p(f"{name} {key}", inp, prec, full_bg,
+                                    go.to(inp["nu"].dtype),
+                                    tol=tolerance(prec))
         fwd_chi, _, _ = prepare_chi22p(inp, prec)
         fwd, _, out, _ = prepare(dict(
-            nu=nu, args=inp["args"], win=None,
-            g=torch.empty((bt, n), device=dev),
+            nu=inp["nu"], args=inp["args"], win=None,
+            g=torch.empty((bt, n), dtype=inp["nu"].dtype, device=dev),
             ranges=(inp["plan"].comp_lo, inp["plan"].comp_hi)), prec)
 
-        def unfused_alone(fwd=fwd, out=out):
+        def unfused_alone(fwd=fwd, out=out, spec=inp["spec"],
+                          bg=in_stream({"bg": bg}, prec)["bg"]):
             fwd()
             likelihood_chi22p(spec, out + bg)
         fused, unfused, _ = chi22p_fns(inp, prec)
@@ -631,7 +687,7 @@ def _chi22p_regime(name, dev, rng, precisions, a, smi):
                           f"max rel {v['grad_max_rel_err']:.2e}"
                           for k, v in reg.items()
                           if k.startswith(f"check {prec}")))
-    del inp, launch
+    del inp, inp32, launch
     torch.cuda.empty_cache()
     return reg
 
@@ -639,8 +695,7 @@ def _chi22p_regime(name, dev, rng, precisions, a, smi):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--regime", action="append", choices=REGIMES)
-    ap.add_argument("--precision", choices=("f32", "bf16", "both"),
-                    default="f32")
+    ap.add_argument("--precision", choices=tuple(STREAMS), default="f32")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--turns", type=int, default=2)
     ap.add_argument("--sass", action="store_true")
@@ -661,7 +716,7 @@ def main(argv=None):
     print(f"device: {smi}; torch {torch.__version__}")
     out_path = pathlib.Path(a.out)
     out_path.parent.mkdir(parents=True, exist_ok=True)
-    precisions = K.PRECISIONS if a.precision == "both" else (a.precision,)
+    precisions = STREAMS[a.precision]
 
     info = _cuda_build.build("lorentzian")
     print(f"build: {info['seconds']:.1f} s\n{info['log'].strip()}")
@@ -694,9 +749,11 @@ def main(argv=None):
                "max_bins_a_component": int(np.maximum(hi - lo, 0).max()),
                "runs": {}}
         launch = {}
+        inp32 = inp
         for prec in precisions:
             if windowed and prec != "f32":
                 continue
+            inp = in_stream(inp32, prec)
             want = _plain(inp, prec)
             fwd, bwd, out, grads = prepare(inp, prec)
             fwd()
@@ -705,7 +762,8 @@ def main(argv=None):
             first = [t.clone() for t in grads]
             bwd()
             torch.cuda.synchronize()
-            run = _check_against(f"{name} {prec}", out, grads, first, *want)
+            run = _check_against(f"{name} {prec}", out, grads, first, *want,
+                                 tol=tolerance(prec))
             for kind in ("fwd", "bwd"):
                 run[f"{kind}_bound_ms"], run[f"{kind}_bound_by"] = \
                     K.bound_ms(kind, bt, nc, n, comp_bins, windowed, prec)
@@ -740,7 +798,7 @@ def main(argv=None):
                   f"{' '.join(f'{t:.4f}' for t in run['bwd_ms'])} ms"
                   f"{extra}  [{smi}]")
         result["regimes"][name] = reg
-        del inp, launch
+        del inp, inp32, launch
         torch.cuda.empty_cache()
     out_path.write_text(json.dumps(result, indent=1))
     print(f"wrote {out_path}")

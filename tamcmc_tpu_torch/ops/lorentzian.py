@@ -17,7 +17,9 @@ All routing lives here.  `sum_lorentzians`, `sum_lorentzians_trunc_batched`,
 by tensor device only: CUDA tensors go through the hand-written kernels of
 ops/lorentzian_kernel.py, CPU tensors through the plain versions here.  A
 CUDA tensor never falls back: a failed build, a bad argument or a refused
-launch raises.
+launch raises.  CUDA float64 tensors (an f64 problem) launch the kernels'
+float64 instantiation in the dense, segment and fused forms; the windowed
+sum raises for them (float32 only).
 
 `lorentzian_chi22p` is the main path of every chi22p fit without a mask:
 the mode sum, the background and the chi^2(2 dof) likelihood in one

@@ -43,12 +43,16 @@ class Problem:
     def astype(self, dtype):
         """Copy with nu, spec, params0, sigma_spec and mask cast to `dtype`.
 
-        The f64 validation path (`run --precision f64`, CPU only): the
-        reference samples in double precision [U], and every state tensor
-        init_state makes follows params0's dtype, so the whole sampler then
-        runs in float64.  What the model closure baked in at build time (the
-        window segments) stays as built, from float32 params0, as in the
-        reference's Problem.astype."""
+        The f64 validation path (`run --precision f64`, on the CPU or a
+        CUDA device, where the Lorentzian sums run the kernels' float64
+        instantiation): the reference samples in double precision [U], and
+        every state tensor init_state makes follows params0's dtype, so the
+        whole sampler then runs in float64.  What the model closure baked in
+        at build time (the window segments) stays as built, from float32
+        params0, as in the reference's Problem.astype; every tensor it hands
+        the kernels is formed from the cast parameters and data, so float64
+        (the kernels refuse a mix of types).  The temperature ladder stays
+        float32, as the reference's make_beta_ladder builds it."""
         def c(a):
             return None if a is None else a.to(dtype)
         return dataclasses.replace(

@@ -3,13 +3,15 @@ GPU.
 
     python -m tamcmc_tpu_torch.step_profile [--demo ms_global | --problem
         FILE] [--temps T] [--chains 128] [--steps 100] [--reps 30]
-        [--out chiprun_out/step_profile.json]
+        [--precision f32|f64] [--out chiprun_out/step_profile.json]
 
 The problem is built by the CLI's own `cli._build_problem`, so a
 FILE is read exactly as `run --problem FILE` reads it; it must name a
 spectrum model of the MS_Global, RGB asymptotic or MS_local family.  T
 defaults to the demo's or the file's own (6 for ms_global, 10 for
-kepler_full, 8 for subgiant_mixed).  Each piece of the step (assembly,
+kepler_full, 8 for subgiant_mixed).  `--precision f64` profiles the step
+of `run --precision f64`: the problem cast to float64 as `run` casts it,
+its kernels the float64 instantiation.  Each piece of the step (assembly,
 background, the forward kernel without the epilogue: segment mode for a
 model with window segments, dense mode otherwise, the likelihood given the
 modes, the log-likelihood forward and forward+backward as the step runs it
@@ -108,6 +110,8 @@ def main(argv=None):
     ap.add_argument("--reps", type=int, default=30)
     ap.add_argument("--warmup", type=int, default=60)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--precision", choices=("f32", "f64"), default="f32",
+                    help="f64: the step of `run --precision f64`")
     ap.add_argument("--out", default="chiprun_out/step_profile.json")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -134,6 +138,8 @@ def main(argv=None):
         raise SystemExit("give --demo or --problem, not both")
     what = args.problem or args.demo
     problem, hp, _, meta = _build_problem(args, dev)
+    if args.precision == "f64":
+        problem = problem.astype(torch.float64)     # as `run` casts it
     args.temps = args.temps or meta["n_temps"]
     fn, layout = problem.model_fn, problem.layout
     if not hasattr(fn, "_assemble"):
@@ -269,8 +275,8 @@ def main(argv=None):
     step_dev = next(r["device_ms"] for r in rows
                     if r["layer"] == "mala_step adaptive")
 
-    print(f"{what}: T={args.temps} C={args.chains} N={nu.shape[0]}  "
-          f"[{smi}]")
+    print(f"{what} ({args.precision}): T={args.temps} C={args.chains} "
+          f"N={nu.shape[0]}  [{smi}]")
     print(f"{'layer':40s} {'host ms':>9s} {'device ms':>10s} {'launches':>9s}"
           f" {'span ms':>9s}")
     for r in rows:
@@ -293,7 +299,7 @@ def main(argv=None):
     out.write_text(json.dumps({
         "device": smi, "torch": torch.__version__, "demo": args.demo,
         "problem": args.problem, "model": problem.model_meta["name"],
-        "temps": args.temps,
+        "precision": args.precision, "temps": args.temps,
         "chains": args.chains, "n_bins": int(nu.shape[0]), "layers": rows,
         "step_host_ms": steps, "peak_mib": peak,
         "idle_share": 1.0 - step_dev / steps["adaptive"]}, indent=1))

@@ -6,10 +6,11 @@ tools/validate_f64.py).
 The reference samples in float64; the port's contract is float32 with the
 sampler in standardised u-space.  BASELINE configs 1-3 at CI scale
 (validate_bf16.CONFIGS) are each fitted twice with validate_bf16's plan,
-ladder, walkers and seed: in float32 on `--device` and in float64 on the
-CPU (`Problem.astype(torch.float64)`, the `run --precision f64` path,
-which the card refuses).  Both fit ONE float32 data realisation: the demo
-is drawn once on the CPU, and the float32 side fits that spectrum on its
+ladder, walkers and seed, both on `--device`: in float32 and in float64
+(`Problem.astype(torch.float64)`, the `run --precision f64` path; on a
+CUDA device the kernels' float64 instantiation), as the reference's tool
+keeps both sides on one device.  Both fit ONE float32 data realisation:
+the demo is drawn once on the CPU and both sides fit that spectrum on the
 device (a demo draws its noise on its own device, so a CPU draw and a card
 draw differ; the reference's first run read z_max 102 from two draws).
 The pair is judged as validate_bf16 judges it; an inconsistency is to be
@@ -32,13 +33,13 @@ from tamcmc_tpu_torch.validate_bf16 import (CONFIGS, device_arg, fit, judge,
 
 
 def problems(demo, kw, dev):
-    """(float32 problem on `dev`, float64 problem on the CPU, hp): one
-    float32 spectrum, drawn on the CPU."""
+    """(float32 problem, float64 problem, hp), both on `dev`: one float32
+    spectrum, drawn on the CPU, the float64 side its cast."""
     from tamcmc_tpu_torch.demos import make_demo
     cpu, hp, _, _ = make_demo(demo, seed=0, device="cpu", **kw)
     on_dev = cpu if dev.type == "cpu" else with_data(
         make_demo(demo, seed=0, device=dev, **kw)[0], cpu)
-    return on_dev, cpu.astype(torch.float64), hp
+    return on_dev, on_dev.astype(torch.float64), hp
 
 
 def main(argv=None):

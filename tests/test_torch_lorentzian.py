@@ -612,7 +612,8 @@ def test_bf16_plans_and_bounds():
             for p in ("f32", "bf16")] == ["fwd", "fwd_bf16", "bwd",
                                           "bwd_bf16"]
     assert set(tk.LAUNCHES) == {"fwd", "bwd", "fwd_bf16", "bwd_bf16",
-                                "fwd_chi22p", "fwd_chi22p_bf16"}
+                                "fwd_chi22p", "fwd_chi22p_bf16",
+                                "fwd_f64", "bwd_f64", "fwd_chi22p_f64"}
     for kind, (n32, n16, ntc) in (("fwd", (4, 5, 2)), ("bwd", (4, 7, 10))):
         ms, by = tk.bound_ms(kind, 768, 54, 40000, 536675, precision="bf16")
         want = 1e3 * 768 * 536675 * (n32 / 67e12 + n16 / 134e12

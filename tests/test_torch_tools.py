@@ -182,6 +182,9 @@ def test_kernel_ab_counts_the_epilogue_in_the_sass():
     assert kernel_ab._without_epilogue(
         "lorentz_fwd_bf16_chi22p_kernel<1>") == ("lorentz_fwd_bf16_kernel<1>",
                                                   1)
+    assert kernel_ab._without_epilogue(
+        "lorentz_fwd_f64_chi22p_kernel<2>") == ("lorentz_fwd_f64_kernel<2>",
+                                                2)
     assert kernel_ab._without_epilogue("lorentz_fwd_kernel<0,4,0>") is None
     assert kernel_ab._without_epilogue("lorentz_bwd_kernel<0,1>") is None
     assert epi["lorentz_fwd_kernel<0,4,1>"] == {
