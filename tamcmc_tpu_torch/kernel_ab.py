@@ -41,13 +41,17 @@ the difference) and plus the chain's forward, and through the package
 forward and backward against the unfused path; beside the bound stands the
 MUFU floor (`mufu_floor_ms`).
 
+With `f64` it also runs `check_clamp_path`.
+
 `--sass` writes `cuobjdump -sass` of the build beside the JSON and prints,
 per kernel instantiation, its registers a thread and bytes of local memory
 (`cuobjdump -res-usage`), its local-memory loads and stores (LDL / STL:
 spills), and the opcode counts of every loop that holds two or more
 reciprocals (`MUFU`) or a tensor-core sum (`HMMA`): a loop's dispatch
 slots per component-bin are its instruction count over the component-bins
-one pass covers (PERF.md section 6 gives the count for each loop).  For a
+one pass covers, one reciprocal estimate each (MUFU.RCP64H, MUFU.RCP), and
+it prints them beside the float64-pipe instructions per component-bin and
+the loop's BSSY and CALL (a reciprocal's slow path).  For a
 forward with the chi22p epilogue it prints the instructions and MUFU
 results the epilogue adds to the body of the same forward without it, in
 all and per (walker, bin) of a thread (static counts), and for every
@@ -112,6 +116,60 @@ def demo_components(problem, n_walkers, rng, dev):
         H, Cc, W, B, _ = problem.model_fn._assemble(
             problem.embed(x0 + scale * u))
     return tuple(a.contiguous() for a in (H, Cc, W, B))
+
+
+def check_clamp_path(dev, tol=1e-10, bt=64, nc=8, n=40000, seed=5):
+    """The float64 kernels' clamped loops (csrc/lorentzian.cu
+    inv_f64<true>, which a block runs when one of its centres or bins lies
+    past RCP64_SAFE = 2^487, or is NaN) against the plain float64 version:
+    dense mode, 64 walkers (four a forward block).  Walker 0's first centre
+    lies at 2^490, where 1 + x^2 stays below the clamp; walker 5's at 2^511
+    with width 2, where 1 + x^2 = 2^1022 is clamped to Y_MAX = 2^1021 (the
+    plain version's 1 / y = 2^-1022 against the kernel's 2^-1021); walker
+    6's at 2^600, where 1 + x^2 is +inf (plain 0 against 2^-1021).  Both
+    differences in inv are below 2^-1021 and every value must agree.  The
+    modes and the gradients of sum(g modes), and the fused logL and the
+    gradients of its sum, within `tol` (|a - b| <= tol + tol |b| for
+    values, max |a - b| / max |b| for gradients); raises otherwise,
+    returns the largest errors."""
+    rng = np.random.default_rng(seed)
+
+    def f64(a):
+        return torch.as_tensor(np.asarray(a, np.float64), device=dev)
+    nu = torch.linspace(1000.0, 1400.0, n, dtype=torch.float64, device=dev)
+    C = rng.uniform(1050, 1350, (bt, nc))
+    W = rng.uniform(0.5, 3, (bt, nc))
+    C[0, 0], C[5, 0], W[5, 0], C[6, 0] = 2.0 ** 490, 2.0 ** 511, 2.0, \
+        2.0 ** 600
+    args = [f64(rng.uniform(1, 5, (bt, nc))), f64(C), f64(W),
+            f64(rng.uniform(-0.1, 0.1, (bt, nc)))]
+    g = f64(rng.normal(size=(bt, n)))
+    spec, bg_n = f64(rng.exponential(2.0, n)), f64(rng.uniform(0.5, 1, n))
+    bg_b = f64(rng.uniform(0.1, 0.3, (bt, 1)))
+    plan = K.dense_plan(n, nc)
+    res = {}
+    for name, kernel, plain in (
+            ("modes", lambda *a: L.sum_lorentzians(nu, *a),
+             lambda *a: L.sum_lorentzians_plain(nu, *a)),
+            ("logL", lambda *a: L.lorentzian_chi22p(nu, spec, *a, plan, bg_n,
+                                                    bg_b),
+             lambda *a: L.lorentzian_chi22p_plain(nu, spec, *a, plan, bg_n,
+                                                  bg_b))):
+        outs = []
+        for f in (kernel, plain):
+            leaves = [a.clone().requires_grad_(True) for a in args]
+            out = f(*leaves)
+            up = g if name == "modes" else torch.ones_like(out)
+            outs.append((out.detach(), torch.autograd.grad(out, leaves, up)))
+        (a, ga), (b, gb) = outs
+        val = bool(((a - b).abs() <= tol + tol * b.abs()).all())
+        rel = max(float((x - y).abs().max() / y.abs().max())
+                  for x, y in zip(ga, gb))
+        res[name] = {"max_abs_err": float((a - b).abs().max()),
+                     "grad_max_rel_err": rel}
+        if not (val and rel <= tol):
+            raise AssertionError(f"float64 clamped loops, {name}: {res}")
+    return res
 
 
 def regime_problem(name, dev):
@@ -509,14 +567,36 @@ def _parse_sass(text):
             ops = collections.Counter(
                 o.split()[0].split(".")[0] for _, o in body)
             if ops["MUFU"] >= 2 or ops["HMMA"]:
-                found.append({"instructions": len(body),
-                              "ops": dict(ops.most_common())})
+                found.append(_loop_counts(body, ops))
         names = [o.split()[0] for _, o in ins[:end]]
         ops = collections.Counter(
             n if n.startswith("MUFU") else n.split(".")[0] for n in names)
         out[_kernel_label(func.split("\n", 1)[0].strip())] = {
             "instructions": end, "ops": dict(ops.most_common()),
             "ldl": ops["LDL"], "stl": ops["STL"], "sha": code, "loops": found}
+    return out
+
+
+# opcodes that issue to the float64 pipe
+F64_PIPE = ("DFMA", "DADD", "DMUL", "DSETP", "DMNMX", "DSET")
+
+
+def _loop_counts(body, ops):
+    """{"instructions", "ops"} of one loop's SASS body and, where it holds
+    reciprocal estimates (MUFU.RCP64H in float64, MUFU.RCP in float32: one
+    a component-bin in each forward and backward loop), the component-bins
+    one pass covers ("rcp"), its instructions and float64-pipe
+    instructions per component-bin, and its BSSY and CALL instructions
+    (the convergence region and call of a reciprocal's slow path)."""
+    full = collections.Counter(o.split()[0] for _, o in body)
+    rcp = full["MUFU.RCP64H"] or full["MUFU.RCP"]
+    f64 = sum(ops[op] for op in F64_PIPE)
+    out = {"instructions": len(body), "ops": dict(ops.most_common()),
+           "bssy": ops["BSSY"], "call": ops["CALL"], "f64_pipe": f64,
+           "rcp": rcp}
+    if rcp:
+        out["per_comp_bin"] = len(body) / rcp
+        out["f64_pipe_per_comp_bin"] = f64 / rcp
     return out
 
 
@@ -607,8 +687,15 @@ def _print_sass(kernels):
                   f"and {epi['mufu_per_walker_bin']:.2f} MUFU a (walker, "
                   f"bin) over {epi['walker_bins']} a thread")
         for loop in k.get("loops", ()):
+            per = ""
+            if "per_comp_bin" in loop:
+                per = (f" ({loop['rcp']} component-bins a pass: "
+                       f"{loop['per_comp_bin']:.2f} instructions and "
+                       f"{loop['f64_pipe_per_comp_bin']:.2f} on the float64 "
+                       f"pipe a component-bin; BSSY {loop['bssy']}, CALL "
+                       f"{loop['call']})")
             print(f"sass {kern}: loop of {loop['instructions']} "
-                  f"instructions {loop['ops']}")
+                  f"instructions{per} {loop['ops']}")
 
 
 def _max_cover(lo, hi, n):
@@ -729,6 +816,10 @@ def main(argv=None):
         result["sass"] = _sass(info["path"], out_path.with_suffix(".sass"))
         _print_sass(result["sass"])
 
+    if "f64" in precisions:
+        result["clamp_path"] = check_clamp_path(dev)
+        print(f"float64 clamped loops against the plain float64 version: "
+              f"{result['clamp_path']}")
     rng = np.random.default_rng(0)
     if a.chi22p:
         result["chi22p"] = {

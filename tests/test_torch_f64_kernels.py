@@ -11,8 +11,10 @@ as an f64 fit's data is):
     the tile first, their h b^2 once per walker, the rest masked per bin)
     in segment and dense mode against `sum_lorentzians_segments` /
     `sum_lorentzians` (`_fwd_impl`): within 1e-12 relative;
-  * the chi22p epilogue (t and g per bin, per-(walker, tile) records added
-    in tile order, lorentzian_kernel.chi22p_tile_sums) against
+  * the chi22p epilogue (g per bin; t per thread, the one logarithm of its
+    four bins, lorentzian_kernel.log_sums_f64, then their quotients S / m;
+    per-(walker, tile) records added in tile order,
+    lorentzian_kernel.chi22p_tile_sums) against
     `likelihood_chi22p_pieces` / `likelihood_chi22p` and jax.grad of it:
     logL within 1e-12 relative, g within 1e-12 of its max;
   * the backward's per-(component, chunk) records (lane-strided sums, the
@@ -108,12 +110,15 @@ def _fwd_replay(plan, nu, H, C, W, B):
 
 def _epilogue_replay(modes, spec, bg):
     """logL, g and sum g as lorentz_fwd_f64_chi22p_kernel forms them from
-    the modes and the background bg = bg_n + bg_b."""
+    the modes and the background bg = bg_n + bg_b: a thread's t starts from
+    the one logarithm of its four bins (lorentzian_kernel.log_sums_f64),
+    then adds their quotients S / m in order."""
     M = modes + bg
     m = np.where(M < 1e-12, 1e-12, M)
     q = spec / m
     g = np.where(M >= 1e-12, q / m - 1.0 / m, 0.0)
-    T, G = K.chi22p_tile_sums(np.log(m) + q, g, dtype=np.float64)
+    T, G = K.chi22p_tile_sums(q, g, head=K.log_sums_f64(m),
+                              dtype=np.float64)
     return -T, g, G
 
 

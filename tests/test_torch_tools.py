@@ -192,6 +192,40 @@ def test_kernel_ab_counts_the_epilogue_in_the_sass():
         "instructions_per_walker_bin": 2 / 16, "mufu_per_walker_bin": 1 / 16}
 
 
+_SASS_F64 = """
+		Function : _Z22lorentz_bwd_f64_kernelPKd
+	.headerflags	@"EF_CUDA_SM90"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;      /* 0x00000a00ff017b82 */
+        /*0010*/                   MUFU.RCP64H R3, R5 ;        /* 0x0000000003027308 */
+        /*0020*/                   DFMA R6, -R4, R2, 1 ;       /* 0x0000000003027309 */
+        /*0030*/                   BSSY B0, 0x60 ;             /* 0x0000000003027310 */
+        /*0040*/                   DADD R8, R6, R8 ;           /* 0x0000000003027311 */
+        /*0050*/              @!P0 CALL.REL.NOINC 0x100 ;      /* 0x0000000003027312 */
+        /*0060*/                   MUFU.RCP64H R3, R7 ;        /* 0x0000000003027313 */
+        /*0070*/                   DMUL R10, R6, R8 ;          /* 0x0000000003027314 */
+        /*0080*/              @!P1 BRA 0x10 ;                  /* 0x0000000000008947 */
+        /*0090*/                   EXIT ;                      /* 0x000000000000794d */
+        /*00a0*/                   BRA 0xa0;                   /* 0xfffffffc00fc7947 */
+"""
+
+
+def test_kernel_ab_counts_a_float64_loop_per_component_bin():
+    """`--sass` on a float64 loop: its component-bins a pass are its
+    MUFU.RCP64H estimates (one a component-bin), and beside its
+    instructions per component-bin it reads the float64-pipe ones and the
+    BSSY and CALL of a reciprocal's slow path."""
+    k = kernel_ab._parse_sass(_SASS_F64)
+    (loop,) = k["_Z22lorentz_bwd_f64_kernelPKd"]["loops"]
+    assert loop["instructions"] == 8 and loop["rcp"] == 2
+    assert loop["bssy"] == 1 and loop["call"] == 1 and loop["f64_pipe"] == 3
+    assert loop["per_comp_bin"] == 4.0 and loop["f64_pipe_per_comp_bin"] == 1.5
+    # a float32 loop counts its MUFU.RCP the same way
+    (loop32,) = kernel_ab._parse_sass(_SASS)[
+        "lorentz_fwd_kernel<0,4,0>"]["loops"]
+    assert loop32["rcp"] == 2 and loop32["per_comp_bin"] == 1.5
+    assert loop32["bssy"] == loop32["call"] == loop32["f64_pipe"] == 0
+
+
 def test_kernel_ab_mufu_floor():
     """One MUFU result per component-bin (and per walker-bin with the
     epilogue) over 16 a clock per SM: 1.126 ms at kepler_full's 1,280
