@@ -5,11 +5,19 @@
     python -m tamcmc_tpu_torch.kernel_ab --precision f64 [--chi22p]
 
 Regimes (the shapes `chip_smoke.py` and the demos' runs give the kernels):
-windowed 16x11x12,288; segment ms_global 768x54x40,000; dense subgiant_mixed
-1024x210x60,000; segment kepler_full 1280x224x120,000; segment reduced
-flagship 64x36x6,000 (the golden fit's 4 x 16 walkers, where the forward
-runs one walker a block and the backward 512-bin chunks).  Each launch is
-enqueued through ctypes on preallocated outputs and arguments converted
+windowed 16x11x12,288 (the reference Pallas test's, win = 40 W); windowed
+ms_global 768x54x40,000 and windowed kepler_full 1280x224x120,000 (the
+demos' walkers and grids, each walker's window the one the model's static
+segments are cut from, `demo_windows`); segment ms_global 768x54x40,000;
+dense subgiant_mixed 1024x210x60,000; segment kepler_full
+1280x224x120,000; segment reduced flagship 64x36x6,000 (the golden fit's
+4 x 16 walkers, where the forward runs one walker a block and the backward
+512-bin chunks).  A windowed regime's bound counts its in-window
+component-bins (`lorentzian_kernel.in_window_bins`), and it prints the
+in-window and visited shares of its (walker, component, bin) triples and a
+sha256 of each output (values, gH, gC, gW, gB), which a run from an older
+checkout prints too: equal hashes are outputs equal bit for bit.  Each
+launch is enqueued through ctypes on preallocated outputs and arguments converted
 once, so a time is the kernel's alone, from CUDA events around `--reps`
 launches after warm-up.  Beside it stand the same call through the
 package's autograd wrapper (the runs "<precision> wrapper": the path a fit
@@ -105,17 +113,39 @@ def mufu_floor_ms(bt, n, comp_bins, chi22p=False):
     return 1e3 * mufu / K.PEAK_MUFU
 
 
-def demo_components(problem, n_walkers, rng, dev):
-    """(H, C, W, B) of n_walkers parameter vectors drawn around params0 at
-    the demo's prior-based step scales."""
+def _walkers(problem, n_walkers, rng, dev):
+    """n_walkers full parameter vectors drawn around params0 at the demo's
+    prior-based step scales."""
     scale = torch.as_tensor(default_init_scales(problem), device=dev)
     x0 = problem.extract(problem.params0)
     u = torch.as_tensor(rng.standard_normal((n_walkers, x0.shape[0])),
                         dtype=torch.float32, device=dev)
+    return problem.embed(x0 + scale * u)
+
+
+def demo_components(problem, n_walkers, rng, dev):
+    """(H, C, W, B) of n_walkers parameter vectors drawn around params0 at
+    the demo's prior-based step scales."""
     with torch.no_grad():
         H, Cc, W, B, _ = problem.model_fn._assemble(
-            problem.embed(x0 + scale * u))
+            _walkers(problem, n_walkers, rng, dev))
     return tuple(a.contiguous() for a in (H, Cc, W, B))
+
+
+def demo_windows(problem, n_walkers, rng, dev):
+    """(H, C, W, B, win) as `demo_components` draws them, with each
+    walker's window from its own W by the rule the MS_Global model cuts its
+    static segments with (models/ms_global.py _window_segments): win =
+    trunc max(W, 1e-3) + margin, trunc the walker's layout entry (40 where
+    it is 0), the margin the demo's window hint's (10 uHz)."""
+    full = _walkers(problem, n_walkers, rng, dev)
+    with torch.no_grad():
+        H, Cc, W, B, _ = problem.model_fn._assemble(full)
+    trunc = problem.layout.get(full, "trunc")
+    trunc = torch.where(trunc == 0, torch.full_like(trunc, 40.0), trunc)
+    margin = float(problem.model_fn._spec.window_hint[4])
+    win = trunc * torch.clamp_min(W, 1e-3) + margin
+    return tuple(a.contiguous() for a in (H, Cc, W, B, win))
 
 
 def check_clamp_path(dev, tol=1e-10, bt=64, nc=8, n=40000, seed=5):
@@ -173,10 +203,13 @@ def check_clamp_path(dev, tol=1e-10, bt=64, nc=8, n=40000, seed=5):
 
 
 def regime_problem(name, dev):
-    """(demo problem, walkers) of a segment or dense regime."""
+    """(demo problem, walkers) of a segment, dense or full-width windowed
+    regime."""
     demo, temps, chains, sizes = {
         "segment ms_global": ("ms_global", 6, C, {}),
+        "windowed ms_global": ("ms_global", 6, C, {}),
         "segment kepler_full": ("kepler_full", 10, C, {}),
+        "windowed kepler_full": ("kepler_full", 10, C, {}),
         "dense subgiant_mixed": ("subgiant_mixed", 8, C, {}),
         "segment reduced flagship": ("ms_global", 4, 16,
                                      {"ngrid": 6000, "n_orders": 4})}[name]
@@ -190,21 +223,28 @@ def regime_inputs(name, dev, rng):
     def f32(a):
         return torch.as_tensor(np.asarray(a, np.float32), device=dev)
 
-    if name == "windowed":
-        bt, nc, n = 16, 11, 3 * 4096
-        nu = torch.linspace(1000.0, 1400.0, n, device=dev)
-        args = (f32(rng.uniform(1, 5, (bt, nc))),
-                f32(rng.uniform(1050, 1350, (bt, nc))),
-                f32(rng.uniform(0.5, 3, (bt, nc))),
-                f32(rng.uniform(-0.1, 0.1, (bt, nc))))
-        win = 40.0 * args[2]
-        return dict(nu=nu, args=args, win=win, g=f32(rng.normal(size=(bt, n))),
+    def windowed(nu, args, win, g):
+        nc, n = args[0].shape[1], nu.shape[0]
+        return dict(nu=nu, args=tuple(args), win=win, g=g,
                     ranges=(np.zeros(nc), np.full(nc, n)),
                     plain=lambda nu_, *a, precision: L.sum_lorentzians_trunc(
                         nu_, *a),
                     wrapper=lambda nu_, *a, precision:
                         L.sum_lorentzians_trunc_batched(nu_, *a))
+
+    if name == "windowed":
+        bt, nc, n = 16, 11, 3 * 4096
+        args = (f32(rng.uniform(1, 5, (bt, nc))),
+                f32(rng.uniform(1050, 1350, (bt, nc))),
+                f32(rng.uniform(0.5, 3, (bt, nc))),
+                f32(rng.uniform(-0.1, 0.1, (bt, nc))))
+        return windowed(torch.linspace(1000.0, 1400.0, n, device=dev), args,
+                        40.0 * args[2], f32(rng.normal(size=(bt, n))))
     problem, n_walkers = regime_problem(name, dev)
+    if name.startswith("windowed"):
+        *args, win = demo_windows(problem, n_walkers, rng, dev)
+        return windowed(problem.nu, args, win, f32(rng.normal(
+            size=(n_walkers, problem.nu.shape[0]))))
     args = demo_components(problem, n_walkers, rng, dev)
     nu = problem.nu
     n, nc = nu.shape[0], args[0].shape[1]
@@ -231,9 +271,10 @@ def regime_inputs(name, dev, rng):
                     nu_, *a, precision))
 
 
-REGIMES = ("windowed", "segment ms_global", "dense subgiant_mixed",
+REGIMES = ("windowed", "windowed ms_global", "windowed kepler_full",
+           "segment ms_global", "dense subgiant_mixed",
            "segment kepler_full", "segment reduced flagship")
-CHI_REGIMES = REGIMES[1:]
+CHI_REGIMES = tuple(r for r in REGIMES if not r.startswith("windowed"))
 STREAMS = {"f32": ("f32",), "bf16": ("bf16",), "f64": ("f64",),
            "both": ("f32", "bf16"), "all": ("f32", "bf16", "f64")}
 
@@ -698,6 +739,40 @@ def _print_sass(kernels):
                   f"instructions{per} {loop['ops']}")
 
 
+def window_shares(nu, C, win):
+    """A windowed regime's work, from its inputs (tensors or arrays): the
+    in-window component-bins per walker (|fl(nu - c)| <= win,
+    `lorentzian_kernel.in_window_bins`) and the shares of its (walker,
+    component, bin) triples that lie in the window and in the tiles
+    (forward) and chunks (backward) the kernels visit
+    (`lorentzian_kernel.window_visits`, with the blocks the launch takes:
+    FWD_W walkers a forward block or 1, the backward's chunk for Bt)."""
+    nu, C, win = (np.asarray(a.cpu() if torch.is_tensor(a) else a,
+                             np.float32) for a in (nu, C, win))
+    bt, nc = C.shape
+    n = nu.shape[0]
+    triples = bt * nc * n
+    inside = int(K.in_window_bins(nu, C, win).sum())
+    plan = K.dense_plan(n, nc, windowed=True)
+    out = {"in_window_comp_bins_per_walker": inside / bt,
+           "in_window_share": inside / triples}
+    for kind, width, group in (
+            ("fwd", plan.tile, K.FWD_W if plan.wide_forward(bt) else 1),
+            ("bwd", plan.for_walkers(bt).chunk, 1)):
+        vis = K.window_visits(nu, C, win, width, group)
+        bins = np.minimum(width, n - width * np.arange(vis.shape[2]))
+        walkers = np.minimum(group, bt - group * np.arange(vis.shape[0]))
+        out[f"visited_share_{kind}"] = float(
+            walkers @ (vis.sum(1) @ bins)) / triples
+    return out
+
+
+def _sha(t):
+    """The first 16 hex digits of the sha256 of a tensor's bytes."""
+    return hashlib.sha256(t.detach().contiguous().cpu().numpy()
+                          .tobytes()).hexdigest()[:16]
+
+
 def _max_cover(lo, hi, n):
     """Most components whose range holds one bin: the float32 terms the
     forward sums into a bin."""
@@ -839,6 +914,17 @@ def main(argv=None):
                "max_components_a_bin": _max_cover(lo, hi, n),
                "max_bins_a_component": int(np.maximum(hi - lo, 0).max()),
                "runs": {}}
+        # the function's work bounds a windowed regime (an older checkout,
+        # run in A/B turns, has no visit rule and bounds the dense sum)
+        if windowed and hasattr(K, "window_visits"):
+            reg.update(window_shares(inp["nu"], inp["args"][1], inp["win"]))
+            comp_bins = reg["in_window_comp_bins_per_walker"]
+            print(f"{name} ({bt}x{nc}x{n}): in-window share "
+                  f"{reg['in_window_share']:.4f}, visited share forward "
+                  f"{reg['visited_share_fwd']:.4f}, backward "
+                  f"{reg['visited_share_bwd']:.4f} of the (walker, "
+                  f"component, bin) triples; {comp_bins:.1f} in-window "
+                  "component-bins a walker")
         launch = {}
         inp32 = inp
         for prec in precisions:
@@ -855,6 +941,11 @@ def main(argv=None):
             torch.cuda.synchronize()
             run = _check_against(f"{name} {prec}", out, grads, first, *want,
                                  tol=tolerance(prec))
+            if windowed:
+                run["sha256"] = dict(zip(("values", "gH", "gC", "gW", "gB"),
+                                         map(_sha, (out, *grads))))
+                print(f"{name} ({bt}x{nc}x{n}) {prec} sha256: "
+                      + ", ".join(f"{k} {v}" for k, v in run["sha256"].items()))
             for kind in ("fwd", "bwd"):
                 run[f"{kind}_bound_ms"], run[f"{kind}_bound_by"] = \
                     K.bound_ms(kind, bt, nc, n, comp_bins, windowed, prec)

@@ -19,7 +19,9 @@ ops/lorentzian_kernel.py, CPU tensors through the plain versions here.  A
 CUDA tensor never falls back: a failed build, a bad argument or a refused
 launch raises.  CUDA float64 tensors (an f64 problem) launch the kernels'
 float64 instantiation in the dense, segment and fused forms; the windowed
-sum raises for them (float32 only).
+sum raises for them (float32 only).  The windowed sum runs over the dense
+plan, and its kernels visit, per tile or chunk, only the components whose
+window meets its bins, a rule read from C and win on the card at each call.
 
 `lorentzian_chi22p` is the main path of every chi22p fit without a mask:
 the mode sum, the background and the chi^2(2 dof) likelihood in one
@@ -320,9 +322,15 @@ def sum_lorentzians_trunc_batched(nu, H, C, W, B, win):
     """Batched windowed Lorentzian sum: params (Bt, NC), nu (N,) -> (Bt, N).
 
     The public name of the reference's Pallas entry
-    (ops/pallas_lorentzian.py).  CUDA tensors launch the kernels over every
-    bin with the per-bin window mask; CPU tensors take the plain
-    `sum_lorentzians_trunc` with identical semantics."""
+    (ops/pallas_lorentzian.py).  CUDA tensors launch the kernels, which
+    skip tiles as the Pallas pair does: a block visits a component only if
+    its window meets the block's bins (lorentzian_kernel.window_visits, an
+    exact rule), and masks each bin inside a visited one; CPU tensors take
+    the plain `sum_lorentzians_trunc` with identical semantics.  One
+    difference: a NaN or infinite centre, or a NaN grid bin, gives the
+    plain version a NaN gradient (0 x NaN in a masked bin), while the
+    kernels visit no tile for such a component (as the Pallas pair, whose
+    tile bounds skip it) and give it a gradient of 0."""
     if _on_cuda(nu, H):
         return _kernel_sum(nu, H, C, W, B, win, _kernel.dense_plan(
             nu.shape[0], H.shape[-1], windowed=True))

@@ -204,15 +204,29 @@ def _bwd_pairs(plan):
     return sorted(got)
 
 
-def _replay_kernels(plan, nu, H, C, W, B, win, g):
+def _replay_kernels(plan, nu, H, C, W, B, win, g, skip=None, group=None):
     """numpy replay of csrc/lorentzian.cu over a plan.  Forward: per tile,
     the packed constants (c, iw, h, 2hb), (h b^2, win); components that
     cover the tile run unmasked and add h b^2 once, the rest masked per bin
     by range and window.  Backward: per chunk one record of six sums per
     slot over the slot's part of the staged chunk; per component the
-    records added in chunk order, then the closed-form epilogue."""
+    records added in chunk order, then the closed-form epilogue.
+
+    A windowed plan skips as the kernels do (`skip`, its default; False
+    replays the dense traversal): a tile's component only for the walkers
+    of a `group` (FWD_W walkers a forward block, or 1 where the forward
+    runs one a block) whose window meets it, a chunk's slot only for a
+    walker whose window meets the chunk, a zero record for the others
+    (lorentzian_kernel.window_visits)."""
     bt, nc = H.shape
     n_bins = nu.shape[0]
+    skip = plan.windowed if skip is None else skip
+    if group is None:
+        group = tk.FWD_W if plan.wide_forward(bt) else 1
+    if skip:
+        walker_group = np.arange(bt) // group
+        tile_vis = tk.window_visits(nu, C, win, plan.tile, group)
+        chunk_vis = tk.window_visits(nu, C, win, plan.chunk, 1)
     iw = (2.0 / np.maximum(W, 1e-6)).astype(np.float32)
     pack_a = np.stack([C, iw, H, 2 * H * B], -1)             # (bt, nc, 4)
     pack_b = np.stack([H * B * B, win if plan.windowed
@@ -237,7 +251,12 @@ def _replay_kernels(plan, nu, H, C, W, B, win, g):
                 keep = (n >= plan.comp_lo[k]) & (n < plan.comp_hi[k])
                 if plan.windowed:
                     keep = keep & (np.abs(d) <= wn)
-                acc += np.where(keep, t_inv + hbb, 0)
+                v = np.where(keep, t_inv + hbb, 0)
+                if skip:                  # the walkers whose block visits k
+                    rows = tile_vis[walker_group, k, t]
+                    acc[rows] += v[rows]
+                else:
+                    acc += v
         out[:, n] = acc + cst
     scratch = np.full((bt, plan.n_slots, tk.BWD_REC), np.nan, np.float32)
     for ch in range(plan.n_chunks):
@@ -257,6 +276,8 @@ def _replay_kernels(plan, nu, H, C, W, B, win, g):
             r = x * q
             scratch[:, s, :6] = np.stack(
                 [a.sum(-1) for a in (gm, u, p, q, r, x * r)], -1)
+            if skip:                      # the zero record of a skipped slot
+                scratch[~chunk_vis[:, k, ch], s, :6] = 0
     grads = np.zeros((4, bt, nc), np.float32)
     for k in range(nc):
         sums = np.zeros((bt, 6), np.float32)
@@ -301,6 +322,28 @@ def test_kernel_replay_matches_plain(mode, sizes):
         want = _torch_val_grad(lambda *a: tl.sum_lorentzians_trunc(
             tnu, *a, torch.as_tensor(win)), args, g)
     _assert_pair(got, want)
+
+
+@pytest.mark.parametrize("group", [1, tk.FWD_W])
+def test_skipping_replay_is_bitwise_the_dense_one(group):
+    """The windowed traversal that skips tiles and chunks gives the dense
+    traversal's values and gradients bit for bit: a component it leaves out
+    would have added 0 to every bin.  Small tiles and chunks so that most
+    are skipped; a negative, a zero and an infinite window among them."""
+    nu, args, _, g = _segment_case(n=700, ncomp=20)
+    H, C, W, B = args
+    n, nc = nu.shape[0], H.shape[1]
+    win = (6.0 * W).astype(np.float32)
+    win[0, :3], win[1, 3], win[2, 4] = -1.0, 0.0, np.inf
+    plan = tk.LorentzPlan(np.zeros(nc), np.full(nc, n), n, windowed=True,
+                          tile=64, chunk=96)
+    vis = tk.window_visits(nu, C, win, plan.tile, group)
+    assert 0.05 < vis.mean() < 0.6          # most tiles are skipped
+    skipped = _replay_kernels(plan, nu, *args, win, g, group=group)
+    dense = _replay_kernels(plan, nu, *args, win, g, skip=False)
+    assert np.array_equal(skipped[0], dense[0])
+    for a, b in zip(skipped[1], dense[1]):
+        assert np.array_equal(a, b)
 
 
 def _work_list_case(case):
