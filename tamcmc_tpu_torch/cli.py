@@ -518,7 +518,9 @@ def _run(args, device, shape, runner, mesh_label):
     from tamcmc_tpu_torch.parallel import distributed as dist_
     from tamcmc_tpu_torch.sampler.mala import init_state
     from tamcmc_tpu_torch.sampler.tempering import make_beta_ladder
-    from tamcmc_tpu_torch.utils.metrics import MetricsLogger
+    from tamcmc_tpu_torch.utils.metrics import (MetricsLogger, counters,
+                                                counters_since, span,
+                                                tracing)
 
     precision = getattr(args, "precision", "f32")
     outdir = pathlib.Path(args.outdir)
@@ -623,7 +625,9 @@ def _run(args, device, shape, runner, mesh_label):
         meta_d = {**provenance, **(extra or {})}
         if ladder is not None:
             meta_d.update({f"ladder_{k}": v for k, v in ladder.items()})
-        save_checkpoint(str(ckpt), s, rng_state, phase=phase, meta=meta_d)
+        with span("checkpoint.save"):
+            save_checkpoint(str(ckpt), s, rng_state, phase=phase,
+                            meta=meta_d)
 
     # periodic in-run diagnostics: a rolling host buffer of recent chunks
     # feeds the report's artifact set into <outdir>/inrun/, refreshed in
@@ -655,6 +659,8 @@ def _run(args, device, shape, runner, mesh_label):
             if report_chunks % report_every == 0:
                 write_inrun_report(name)
 
+    profiled = {}                  # phase -> its counters, under --profile
+
     @contextlib.contextmanager
     def around(name):
         report_buf.clear()         # traces must not span phase boundaries
@@ -664,8 +670,10 @@ def _run(args, device, shape, runner, mesh_label):
         from torch.profiler import ProfilerActivity, profile
         acts = [ProfilerActivity.CPU] + (
             [ProfilerActivity.CUDA] if device.type == "cuda" else [])
-        with profile(activities=acts) as prof:
+        with profile(activities=acts) as prof, tracing():
+            before = counters()
             yield
+            profiled[name] = counters_since(before)
         (outdir / "torch_trace").mkdir(exist_ok=True)
         prof.export_chrome_trace(str(outdir / "torch_trace" / "acquire.json"))
 
@@ -679,7 +687,9 @@ def _run(args, device, shape, runner, mesh_label):
                     cold_acceptance=round(float(acc_t[0]), 4),
                     acceptance=[round(float(a), 4) for a in acc_t],
                     swap_rates=[round(float(s), 4) for s in swap[:-1]],
-                    sigma=[round(float(s), 6) for s in sigma])
+                    sigma=[round(float(s), 6) for s in sigma],
+                    **({"counters": profiled.pop(name)}
+                       if name in profiled else {}))
 
     t0 = time.perf_counter()
     state, results, phases = _run_phases(
@@ -822,6 +832,7 @@ def _batch_stacked(args, runs, base):
     from tamcmc_tpu_torch.sampler.ensemble import (
         init_ensemble_state, stacked_problem, validate_stackable)
     from tamcmc_tpu_torch.sampler.tempering import make_beta_ladder
+    from tamcmc_tpu_torch.utils.metrics import span
 
     ckpt = base / "stacked_restore.npz"
     if args.resume:
@@ -879,8 +890,9 @@ def _batch_stacked(args, runs, base):
                for d, p in zip(outdirs, problems)]
 
     def save_ckpt(s, rng_state, phase, extra=None):
-        save_checkpoint(str(ckpt), s, rng_state, phase=phase,
-                        meta={**provenance, **(extra or {})})
+        with span("checkpoint.save"):
+            save_checkpoint(str(ckpt), s, rng_state, phase=phase,
+                            meta={**provenance, **(extra or {})})
 
     print(f"stacked ensemble: {n_stars} stars x {n_temps} temps x "
           f"{n_chains} walkers, {problems[0].ndim_free} free dims")

@@ -42,6 +42,7 @@ from tamcmc_tpu_torch.ops.noise import (noise_background,
 from tamcmc_tpu_torch.ops.visibilities import mode_visibility
 from tamcmc_tpu_torch.ops.widths import appourchaux2016_width
 from tamcmc_tpu_torch.utils.blocks import BlockLayout
+from tamcmc_tpu_torch.utils.metrics import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -142,10 +143,11 @@ def build_rgb_asympt(spec: RGBAsymptSpec, precision: str = "f32"):
         cs.append(_flat(nus2))
         ws.append(_flat(w2[..., :, None].expand(nus2.shape)))
         # l = 1: the asymptotic mixed-mode forest
-        f1, zeta, valid = mixed_mode_frequencies(
-            dnu, eps_p, dpi1, eps_g, q, spec.numin, spec.numax_win,
-            spec.n_p_poles, spec.n_g_poles,
-            delta0l=delta0l, alpha_p=alpha_p, alpha_g=alpha_g)
+        with span("armm.solve"):
+            f1, zeta, valid = mixed_mode_frequencies(
+                dnu, eps_p, dpi1, eps_g, q, spec.numin, spec.numax_win,
+                spec.n_p_poles, spec.n_g_poles,
+                delta0l=delta0l, alpha_p=alpha_p, alpha_g=alpha_g)
         if spec.per_mode == "hw_scatter":
             # displace each mode after the solver (zeta keeps its value at
             # the solved frequency), before the height/width interpolation

@@ -22,6 +22,7 @@ import torch
 from tamcmc_tpu_torch.sampler.mala import mala_step
 from tamcmc_tpu_torch.sampler.state import SamplerState
 from tamcmc_tpu_torch.sampler.tempering import tempering_swap
+from tamcmc_tpu_torch.utils.metrics import COUNTERS, span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,7 +44,8 @@ def raw_step(problem, hp, betas, state, generator, adapt):
     state = mala_step(problem, hp, betas, state, generator, adapt=adapt)
     if state.step % hp.dN_mixing == 0:
         parity = (state.step // hp.dN_mixing) % 2
-        state = tempering_swap(betas, state, parity, generator)
+        with span("swap"):
+            state = tempering_swap(betas, state, parity, generator)
     return state
 
 
@@ -160,26 +162,33 @@ def run_phase(problem, hp, betas, state, generator, n_steps, adapt=True,
     collected = []
     emitted = already_emitted
     while emitted < n_emit_total:
-        records = []
-        for _ in range(chunk):
-            for _ in range(thin):
-                state = step(state)
-            records.append(record(state))
-        outs = collect(records, state)
-        emitted += chunk
-        if ladder is not None and adapt:
-            from tamcmc_tpu_torch.sampler.ladder import update_ladder
-            att, acc = outs["swap_att"][-1], outs["swap_acc"][-1]
-            ladder["updates"] += 1
-            ladder["betas"] = update_ladder(
-                ladder["betas"], att - ladder["last_att"],
-                acc - ladder["last_acc"], ladder["updates"])
-            ladder["last_att"], ladder["last_acc"] = att, acc
-            betas = device_betas()
-        if on_chunk is not None:
-            on_chunk(outs)
-        if on_state is not None:
-            on_state(state, generator.get_state(), emitted)
+        with span("chunk"):
+            records = []
+            for _ in range(chunk):
+                for _ in range(thin):
+                    with span("step"):
+                        state = step(state)
+                    COUNTERS["steps"] += 1
+                with span("record"):
+                    records.append(record(state))
+            with span("collect"):
+                outs = collect(records, state)
+            emitted += chunk
+            COUNTERS["chunks"] += 1
+            with span("callbacks"):
+                if ladder is not None and adapt:
+                    from tamcmc_tpu_torch.sampler.ladder import update_ladder
+                    att, acc = outs["swap_att"][-1], outs["swap_acc"][-1]
+                    ladder["updates"] += 1
+                    ladder["betas"] = update_ladder(
+                        ladder["betas"], att - ladder["last_att"],
+                        acc - ladder["last_acc"], ladder["updates"])
+                    ladder["last_att"], ladder["last_acc"] = att, acc
+                    betas = device_betas()
+                if on_chunk is not None:
+                    on_chunk(outs)
+                if on_state is not None:
+                    on_state(state, generator.get_state(), emitted)
         collected.append(outs)
     if not collected:          # resumed exactly at the phase boundary
         return state, {}

@@ -24,6 +24,7 @@ import torch
 from tamcmc_tpu_torch.sampler.problem import Problem
 from tamcmc_tpu_torch.sampler.state import MALAHyper, SamplerState
 from tamcmc_tpu_torch.stats.priors import PriorKind
+from tamcmc_tpu_torch.utils.metrics import span
 
 
 def _truncate_drift(g, delta):
@@ -155,19 +156,21 @@ def mala_step(problem: Problem, hp: MALAHyper, betas, state: SamplerState,
     s2 = (sigma**2)[..., None]
     b = betas[:, None]                                       # (T, 1)
 
-    if hp.use_drift:
-        g = b[..., None] * state.gradL + state.gradP
-        drift = _truncate_drift(g, hp.drift_delta)
-        mean_fwd = state.theta + 0.5 * s2 * _matvec(state.cov, drift)
-    else:
-        mean_fwd = state.theta
-    xi = (torch.randn(state.theta.shape, generator=generator, dtype=dt,
-                      device=dev)
-          if draws is None else draws[0])
-    prop = mean_fwd + sigma[..., None] * _matvec(state.chol, xi)
+    with span("mala.propose"):
+        if hp.use_drift:
+            g = b[..., None] * state.gradL + state.gradP
+            drift = _truncate_drift(g, hp.drift_delta)
+            mean_fwd = state.theta + 0.5 * s2 * _matvec(state.cov, drift)
+        else:
+            mean_fwd = state.theta
+        xi = (torch.randn(state.theta.shape, generator=generator, dtype=dt,
+                          device=dev)
+              if draws is None else draws[0])
+        prop = mean_fwd + sigma[..., None] * _matvec(state.chol, xi)
 
-    # the model sees physical coordinates; gradients chain back to u-space
-    prop_x = u_center + u_scale * prop
+        # the model sees physical coordinates; gradients chain back to u-space
+        prop_x = u_center + u_scale * prop
+
     if hp.use_drift:
         (logLp, logPp), (gLp, gPp) = problem.batched_logparts_and_grad(prop_x)
         gLp = gLp * u_scale
@@ -185,67 +188,71 @@ def mala_step(problem: Problem, hp: MALAHyper, betas, state: SamplerState,
         gPp = torch.zeros_like(state.gradP)
         q_corr = 0.0
 
-    dlog = b * (logLp - state.logL) + (logPp - state.logP) + q_corr
-    u_acc = (torch.rand(state.logL.shape, generator=generator, dtype=dt,
-                        device=dev)
-             if draws is None else draws[1])
-    accept = torch.log(u_acc + 1e-38) < dlog                 # (T, C)
-    accf = accept.to(dt)
-    acc3 = accept[..., None]
+    with span("mala.accept"):
+        dlog = b * (logLp - state.logL) + (logPp - state.logP) + q_corr
+        u_acc = (torch.rand(state.logL.shape, generator=generator, dtype=dt,
+                            device=dev)
+                 if draws is None else draws[1])
+        accept = torch.log(u_acc + 1e-38) < dlog             # (T, C)
+        accf = accept.to(dt)
+        acc3 = accept[..., None]
 
-    theta = torch.where(acc3, prop, state.theta)
-    logL = torch.where(accept, logLp, state.logL)
-    logP = torch.where(accept, logPp, state.logP)
-    gradL = torch.where(acc3, gLp, state.gradL)
-    gradP = torch.where(acc3, gPp, state.gradP)
+        theta = torch.where(acc3, prop, state.theta)
+        logL = torch.where(accept, logLp, state.logL)
+        logP = torch.where(accept, logPp, state.logP)
+        gradL = torch.where(acc3, gLp, state.gradL)
+        gradP = torch.where(acc3, gPp, state.gradP)
 
-    inst_acc = torch.clamp(torch.exp(dlog), max=1.0)
-    acc_rate = (1 - hp.acc_smooth) * state.acc_rate + hp.acc_smooth * inst_acc
+        inst_acc = torch.clamp(torch.exp(dlog), max=1.0)
+        acc_rate = ((1 - hp.acc_smooth) * state.acc_rate
+                    + hp.acc_smooth * inst_acc)
 
-    step = state.step + 1
-    mu, cov, chol, ichol = state.mu, state.cov, state.chol, state.ichol
-    log_sigma = state.log_sigma
-    if adapt:
-        k = float(step)
-        gamma = hp.gain_c0 / (hp.gain_k0 + k) ** hp.gain_alpha
-        if hp.resolved_cov_estimator(C, Df) == "ensemble":
-            # pooled cross-walker moments per temperature
-            mean_c = cmean(theta, -2, keepdims=True)          # (T, 1, Df)
-            mu = state.mu + gamma * (mean_c - state.mu)
-            dev_ = theta - mu
-            emp = cmean(dev_[..., :, None] * dev_[..., None, :], -3,
-                        keepdims=True)
-            cov = state.cov + gamma * (emp - state.cov)
-        else:
-            # per-walker expanding-window moments (1/k gain)
-            gm = 1.0 / max(k, 1.0)
-            mu = state.mu + gm * (theta - state.mu)
-            dev_ = theta - mu
-            emp = dev_[..., :, None] * dev_[..., None, :]
-            cov = state.cov + gm * (emp - state.cov)
-        if step % hp.dN_chol == 0:
-            eye = torch.eye(Df, dtype=dt, device=dev)
-            floor = torch.diag_embed(
-                _per_walker(hp.cov_floor * state.scales0**2))
-            ch, info = torch.linalg.cholesky_ex(cov + floor + hp.eps_cov * eye)
-            # SPD guard: a failed factorisation keeps the previous factor
-            bad = (info != 0) | torch.isnan(ch).any(dim=(-2, -1))
-            # the factorisation and the solve hand back column-major
-            # matrices; the state keeps one layout, row-major, so that a
-            # state restored from a checkpoint (row-major) multiplies
-            # through the same library kernels as the one that was saved
-            # and a resumed fit continues bit for bit
-            chol = torch.where(bad[..., None, None], state.chol,
-                               ch).contiguous()
-            if hp.use_drift:
-                ichol = _batched_tri_inverse(chol).contiguous()
-        acc_est = inst_acc if hp.sigma_acc_estimator == "expected" else accf
-        log_sigma = torch.clamp(
-            state.log_sigma + gamma * (acc_est - hp.resolved_target()),
-            hp.log_sigma_min, hp.log_sigma_max)
+        step = state.step + 1
+        mu, cov, chol, ichol = state.mu, state.cov, state.chol, state.ichol
+        log_sigma = state.log_sigma
+        if adapt:
+            k = float(step)
+            gamma = hp.gain_c0 / (hp.gain_k0 + k) ** hp.gain_alpha
+            if hp.resolved_cov_estimator(C, Df) == "ensemble":
+                # pooled cross-walker moments per temperature
+                mean_c = cmean(theta, -2, keepdims=True)      # (T, 1, Df)
+                mu = state.mu + gamma * (mean_c - state.mu)
+                dev_ = theta - mu
+                emp = cmean(dev_[..., :, None] * dev_[..., None, :], -3,
+                            keepdims=True)
+                cov = state.cov + gamma * (emp - state.cov)
+            else:
+                # per-walker expanding-window moments (1/k gain)
+                gm = 1.0 / max(k, 1.0)
+                mu = state.mu + gm * (theta - state.mu)
+                dev_ = theta - mu
+                emp = dev_[..., :, None] * dev_[..., None, :]
+                cov = state.cov + gm * (emp - state.cov)
+            if step % hp.dN_chol == 0:
+                eye = torch.eye(Df, dtype=dt, device=dev)
+                floor = torch.diag_embed(
+                    _per_walker(hp.cov_floor * state.scales0**2))
+                ch, info = torch.linalg.cholesky_ex(
+                    cov + floor + hp.eps_cov * eye)
+                # SPD guard: a failed factorisation keeps the previous factor
+                bad = (info != 0) | torch.isnan(ch).any(dim=(-2, -1))
+                # the factorisation and the solve hand back column-major
+                # matrices; the state keeps one layout, row-major, so that a
+                # state restored from a checkpoint (row-major) multiplies
+                # through the same library kernels as the one that was saved
+                # and a resumed fit continues bit for bit
+                chol = torch.where(bad[..., None, None], state.chol,
+                                   ch).contiguous()
+                if hp.use_drift:
+                    ichol = _batched_tri_inverse(chol).contiguous()
+            acc_est = (inst_acc if hp.sigma_acc_estimator == "expected"
+                       else accf)
+            log_sigma = torch.clamp(
+                state.log_sigma + gamma * (acc_est - hp.resolved_target()),
+                hp.log_sigma_min, hp.log_sigma_max)
 
-    return state.replace(
-        theta=theta, logL=logL, logP=logP, gradL=gradL, gradP=gradP,
-        mu=mu, cov=cov, chol=chol, ichol=ichol, log_sigma=log_sigma,
-        step=step, naccept=state.naccept + cmean(accf, -1),
-        nprop=state.nprop + 1.0, acc_rate=acc_rate)
+        return state.replace(
+            theta=theta, logL=logL, logP=logP, gradL=gradL, gradP=gradP,
+            mu=mu, cov=cov, chol=chol, ichol=ichol, log_sigma=log_sigma,
+            step=step, naccept=state.naccept + cmean(accf, -1),
+            nprop=state.nprop + 1.0, acc_rate=acc_rate)

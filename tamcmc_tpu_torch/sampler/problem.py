@@ -19,6 +19,7 @@ from tamcmc_tpu_torch.stats.likelihoods import (get_likelihood,
                                                 likelihood_chi22p)
 from tamcmc_tpu_torch.stats.priors import PriorTable
 from tamcmc_tpu_torch.utils.blocks import BlockLayout
+from tamcmc_tpu_torch.utils.metrics import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -148,14 +149,19 @@ class Problem:
         fixed = (self.params0, ~self.priors.free_mask)
         hook = self._chi22p_hook
         if hook is not None:
-            H, C, W, B, plan, bg_n, bg_b = hook(full, self.nu, fixed=fixed)
-            return lorentzian_chi22p(self.nu, self.spec, H, C, W, B, plan,
-                                     bg_n, bg_b, plan.precision)
-        model = self.model_fn(full, self.nu, fixed=fixed)
+            with span("model.assemble"):
+                H, C, W, B, plan, bg_n, bg_b = hook(full, self.nu,
+                                                    fixed=fixed)
+            with span("likelihood"):
+                return lorentzian_chi22p(self.nu, self.spec, H, C, W, B,
+                                         plan, bg_n, bg_b, plan.precision)
+        with span("model.assemble"):
+            model = self.model_fn(full, self.nu, fixed=fixed)
         lfn = get_likelihood(self.likelihood)
-        if self.likelihood == "chi_square":
-            return lfn(self.spec, model, self.sigma_spec, self.mask)
-        return lfn(self.spec, model, self.mask)
+        with span("likelihood"):
+            if self.likelihood == "chi_square":
+                return lfn(self.spec, model, self.sigma_spec, self.mask)
+            return lfn(self.spec, model, self.mask)
 
     def _logP_from_full(self, full):
         logP = self.priors.log_prior(full)
@@ -165,9 +171,11 @@ class Problem:
 
     def log_parts(self, x):
         """x: (..., Df) -> (logL, logP), each (...,); no gradients."""
-        with torch.no_grad():
+        with torch.no_grad(), span("logpost"):
             full = self.embed(x)
-            return self._logL_from_full(full), self._logP_from_full(full)
+            logL = self._logL_from_full(full)
+            with span("prior"):
+                return logL, self._logP_from_full(full)
 
     def logparts_and_grad(self, x):
         """Values + gradients of both log-posterior pieces, (..., Df) ->
@@ -177,16 +185,18 @@ class Problem:
         prior piece never touches the grid, so its gradient is a separate,
         Df-sized backward.  Walkers are independent, so the gradient of the
         batch sum is each walker's own gradient."""
-        with torch.enable_grad():
+        with torch.enable_grad(), span("logpost"):
             xl = x.detach().requires_grad_(True)
             logL = self._logL_from_full(self.embed(xl))
-            gradL, = torch.autograd.grad(logL.sum(), xl)
-            xp = x.detach().requires_grad_(True)
-            logP = self._logP_from_full(self.embed(xp))
-            # uniform and fixed rows alone make a prior that is constant on
-            # its support: no graph reaches x, and the gradient is zero
-            gradP = (torch.autograd.grad(logP.sum(), xp)[0]
-                     if logP.requires_grad else torch.zeros_like(xp))
+            with span("logL.grad"):
+                gradL, = torch.autograd.grad(logL.sum(), xl)
+            with span("prior"):
+                xp = x.detach().requires_grad_(True)
+                logP = self._logP_from_full(self.embed(xp))
+                # uniform and fixed rows alone make a prior that is constant
+                # on its support: no graph reaches x, and the gradient is zero
+                gradP = (torch.autograd.grad(logP.sum(), xp)[0]
+                         if logP.requires_grad else torch.zeros_like(xp))
         return (logL.detach(), logP.detach()), (gradL, gradP)
 
     # the reference's vmap-ed forms; the methods above already batch over

@@ -1,16 +1,34 @@
-"""Structured metrics logging (JSONL).
+"""Structured metrics logging (JSONL), and the program's tracing: spans on
+the profiler's timeline and host counters.
 
 Copy of tamcmc_tpu/utils/metrics.py (reference: console acceptance/swap
 prints + ben_timer wall-clock segments, `ben_timer.cpp` [U]).  Every
 phase/chunk event is one JSON line in metrics.jsonl: machine readable,
 append-only, cheap.
+
+Tracing.  `span(name)` marks one layer of the step (the sampler's chunk,
+step, proposal, posterior, model assembly, ARMM solve, ...).  Off, it costs
+one check of a module flag and returns one shared no-op context; on (inside
+`tracing()`), it is `torch.profiler.record_function("tamcmc/" + name)`, so a
+profiler running around it records the span in the same trace as the
+kernels, copies and fills, on the same clock.  `COUNTERS` is the one
+registry of host counters (never a device read): `steps` and `chunks` run
+by `sampler.driver.run_phase`, `launches` (the Lorentzian kernels' launch
+counts, `ops.lorentzian_kernel.LAUNCHES`) and, while tracing is on,
+`syncs`: each synchronising CUDA call, keyed by the innermost open span.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import time
 import pathlib
+import warnings
+
+import torch
+
+from tamcmc_tpu_torch.ops.lorentzian_kernel import LAUNCHES
 
 
 class MetricsLogger:
@@ -35,3 +53,103 @@ class MetricsLogger:
     def close(self):
         if self.enabled:
             self._f.close()
+
+
+SPAN_PREFIX = "tamcmc/"
+# what torch.cuda.set_sync_debug_mode("warn") warns at each synchronising
+# call (c10/cuda warn_or_error_on_sync); a regex matched at the start
+SYNC_WARNING = "called a synchronizing CUDA operation"
+NO_SPAN = "(none)"
+
+COUNTERS = {"steps": 0, "chunks": 0, "syncs": {}, "launches": LAUNCHES}
+
+_on = False
+_open = []                      # names of the open spans, innermost last
+_NOOP = contextlib.nullcontext()
+
+
+class _Span:
+    """A named range on the profiler's timeline, pushed on the stack of
+    open spans that keys the sync counter."""
+    __slots__ = ("name", "_range")
+
+    def __init__(self, name):
+        self.name = name
+        self._range = torch.profiler.record_function(SPAN_PREFIX + name)
+
+    def __enter__(self):
+        _open.append(self.name)
+        self._range.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._range.__exit__(*exc)
+        _open.pop()
+        return False
+
+
+def span(name: str):
+    """The span `name`: a profiler range while tracing is on, else the
+    shared no-op context."""
+    if not _on:
+        return _NOOP
+    return _Span(name)
+
+
+def _count_syncs(show):
+    """A warnings.showwarning that counts the sync warnings by the
+    innermost open span and hands every other warning to `show`."""
+    def showwarning(message, category, filename, lineno, file=None,
+                    line=None):
+        if str(message).startswith(SYNC_WARNING):
+            key = _open[-1] if _open else NO_SPAN
+            syncs = COUNTERS["syncs"]
+            syncs[key] = syncs.get(key, 0) + 1
+            return
+        show(message, category, filename, lineno, file, line)
+    return showwarning
+
+
+@contextlib.contextmanager
+def tracing(on: bool = True):
+    """Spans on (or off) inside the block, and with them the sync counter:
+    on a CUDA device torch.cuda.set_sync_debug_mode("warn") makes every
+    synchronising call warn, and a warnings hook counts each.  The previous
+    flag, sync mode, warning filters and hook come back on exit."""
+    global _on
+    prev = _on
+    cuda = on and torch.cuda.is_available()
+    mode = torch.cuda.get_sync_debug_mode() if cuda else None
+    with warnings.catch_warnings():
+        if on:
+            warnings.filterwarnings("always", message=SYNC_WARNING)
+            warnings.showwarning = _count_syncs(warnings.showwarning)
+        if cuda:
+            torch.cuda.set_sync_debug_mode("warn")
+        _on = on
+        try:
+            yield
+        finally:
+            _on = prev
+            if cuda:
+                torch.cuda.set_sync_debug_mode(mode)
+
+
+def counters():
+    """A copy of COUNTERS, for `counters_since`."""
+    return {k: dict(v) if isinstance(v, dict) else v
+            for k, v in COUNTERS.items()}
+
+
+def counters_since(before):
+    """COUNTERS minus the copy `before`; a keyed counter keeps the keys
+    that moved."""
+    out = {}
+    for k, v in COUNTERS.items():
+        if isinstance(v, dict):
+            was = before.get(k, {})
+            out[k] = {key: n - was.get(key, 0) for key, n in v.items()
+                      if n != was.get(key, 0)}
+        else:
+            out[k] = v - before.get(k, 0)
+    return out

@@ -289,6 +289,15 @@ def test_profile_writes_a_chrome_trace_of_the_acquire_phase(tmp_path):
                        .read_text())
     names = {e.get("name") for e in trace["traceEvents"]}
     assert "aten::randn" in names and "aten::cholesky_ex" not in names
+    # the program's spans, and the profiled phase's counters in its
+    # phase_end line: 8 steps, one chunk of 2 records
+    assert {"tamcmc/step", "tamcmc/logpost"} <= names
+    ends = {e["phase"]: e for e in map(
+        json.loads, (tmp_path / "metrics.jsonl").read_text().splitlines())
+        if e["event"] == "phase_end"}
+    assert "counters" not in ends["B"] and "counters" not in ends["L"]
+    assert ends["A"]["counters"] == {"steps": 8, "chunks": 1, "syncs": {},
+                                     "launches": {}}
 
 
 def test_a_failing_phase_aborts_the_writer_and_propagates(tmp_path,
