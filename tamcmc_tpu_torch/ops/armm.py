@@ -18,6 +18,10 @@ is batched over the leading dims of its tensor arguments: scalars per walker
 (...,) -> (..., n_p_poles + n_g_poles - 1) per mode.  Gradients flow, as in
 JAX, through the bracket ends (the poles) and the closed forms, never
 through the bisection's `f > 0` decisions.
+
+The bisection is routed by device: CUDA tensors run the hand-written kernel
+pair (ops/armm_kernel.py, csrc/armm.cu), which gives the plain loop's roots
+and gradients bit for bit; every other tensor runs `bisect_plain`.
 """
 
 from __future__ import annotations
@@ -25,6 +29,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from tamcmc_tpu_torch.ops import armm_kernel
 
 
 def _rdiv(c: float, t):
@@ -53,6 +59,30 @@ def _f(nu, dnu, eps_p, dpi1, eps_g, q, delta0l=0.0, alpha_p=0.0,
        nmax_x=0.0, alpha_g=0.0, pi0_x=0.0):
     return (torch.tan(_theta_p(nu, dnu, eps_p, delta0l, alpha_p, nmax_x))
             - q * torch.tan(_theta_g(nu, dpi1, eps_g, alpha_g, pi0_x)))
+
+
+def bisect_plain(lo, hi, n_bisect, *walker, decisions=None):
+    """n_bisect halvings of every bracket [lo, hi] (..., S) toward the
+    sign change of `_f`, whose walker scalars `walker` (the order of
+    armm_kernel.ROW, each (..., 1)) follow nu; returns the midpoints
+    (..., S).  The plain version of the kernel pair: CPU tensors run it,
+    and the tests hold the kernels to it.  `decisions`, a list, gets each
+    halving's `f > 0`."""
+    for _ in range(n_bisect):
+        mid = 0.5 * (lo + hi)
+        pos = _f(mid, *walker) > 0
+        if decisions is not None:
+            decisions.append(pos)
+        lo, hi = torch.where(pos, lo, mid), torch.where(pos, mid, hi)
+    return 0.5 * (lo + hi)
+
+
+def _bisect(lo, hi, n_bisect, *walker):
+    """The bisection of `mixed_mode_frequencies`: the kernel pair for CUDA
+    tensors (it raises rather than fall back), `bisect_plain` otherwise."""
+    if lo.device.type == "cuda":
+        return armm_kernel.bisect(lo, hi, n_bisect, *walker)
+    return bisect_plain(lo, hi, n_bisect, *walker)
 
 
 def mixed_mode_frequencies(dnu, eps_p, dpi1, eps_g, q, numin, numax,
@@ -102,13 +132,8 @@ def mixed_mode_frequencies(dnu, eps_p, dpi1, eps_g, q, numin, numax,
     width = b - a
     valid = width > 1e-4                     # collapsed (clamped) intervals
     eps = torch.clamp(width * 1e-3, min=1e-6)
-    lo, hi = a + eps, b - eps
-    for _ in range(n_bisect):
-        mid = 0.5 * (lo + hi)
-        pos = _f(mid, dnu, eps_p, dpi1, eps_g, q, delta0l, alpha_p, nmax_x,
-                 alpha_g, pi0_x) > 0
-        lo, hi = torch.where(pos, lo, mid), torch.where(pos, mid, hi)
-    freqs = 0.5 * (lo + hi)
+    freqs = _bisect(a + eps, b - eps, n_bisect, dnu, eps_p, dpi1, eps_g, q,
+                    delta0l, alpha_p, nmax_x, alpha_g, pi0_x)
 
     # window-edge intervals are truncated by the clamp and need not bracket
     # a root: validate every root on the well-conditioned phase form

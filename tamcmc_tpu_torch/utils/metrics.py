@@ -14,7 +14,9 @@ profiler running around it records the span in the same trace as the
 kernels, copies and fills, on the same clock.  `COUNTERS` is the one
 registry of host counters (never a device read): `steps` and `chunks` run
 by `sampler.driver.run_phase`, `launches` (the Lorentzian kernels' launch
-counts, `ops.lorentzian_kernel.LAUNCHES`) and, while tracing is on,
+counts, `ops.lorentzian_kernel.LAUNCHES`), `armm_launches` (the ARMM
+bisection kernels', `ops.armm_kernel.ARMM_LAUNCHES`: `armm` one a solve on
+the card, `armm_bwd` one a gradient through it) and, while tracing is on,
 `syncs`: each synchronising CUDA call, keyed by the innermost open span.
 """
 
@@ -28,6 +30,7 @@ import warnings
 
 import torch
 
+from tamcmc_tpu_torch.ops.armm_kernel import ARMM_LAUNCHES
 from tamcmc_tpu_torch.ops.lorentzian_kernel import LAUNCHES
 
 
@@ -61,7 +64,8 @@ SPAN_PREFIX = "tamcmc/"
 SYNC_WARNING = "called a synchronizing CUDA operation"
 NO_SPAN = "(none)"
 
-COUNTERS = {"steps": 0, "chunks": 0, "syncs": {}, "launches": LAUNCHES}
+COUNTERS = {"steps": 0, "chunks": 0, "syncs": {}, "launches": LAUNCHES,
+            "armm_launches": ARMM_LAUNCHES}
 
 _on = False
 _open = []                      # names of the open spans, innermost last
