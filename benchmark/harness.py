@@ -10,7 +10,16 @@ under the temporary directory, the program's problems built from them as
 up by `warmup_steps` frozen steps in chunks of the window's shape.
 The window drives `sampler.driver.run_phase` through frozen phases of
 `thin * chunk` steps until `seconds` have passed, and ends in a
-synchronise.  A traced run then profiles `trace_steps` more frozen steps.
+synchronise.  A traced run then profiles `trace_steps` more frozen steps
+(the device trace, benchmark/trace.py), and as many again with the
+program's tracing on (`utils.metrics.tracing`: its spans in the trace,
+benchmark/spans.py, and the counters the steps moved): the per-layer
+readers read both.
+
+A configuration's family is a module of benchmark/reference, loaded by
+name (`benchmark.reference.family`); readers are files of
+benchmark/metrics, loaded by name.  A new configuration, cell or metric is
+new files.
 """
 
 from __future__ import annotations
@@ -29,9 +38,9 @@ import time
 import numpy as np
 import torch
 
-from benchmark import check, ess, traffic, work
+from benchmark import check, ess, spans, traffic, work
 from benchmark import trace as trace_mod
-from benchmark.reference.posterior import FAMILIES
+from benchmark.reference import family
 
 HERE = pathlib.Path(__file__).resolve().parent
 ROOT = HERE.parent
@@ -50,7 +59,8 @@ class Cell:
 
 def load_cell(name, root=ROOT):
     """The cell `name` of root/BENCHMARK.json: its workload file
-    benchmark/workloads/<name>.json and its configuration's file."""
+    benchmark/workloads/<name>.json and its configuration's file, whose
+    family's reference module has to exist."""
     bench = json.loads((root / "BENCHMARK.json").read_text())
     entry = next((w for w in bench["workloads"] if w["name"] == name), None)
     if entry is None:
@@ -62,6 +72,7 @@ def load_cell(name, root=ROOT):
         raise SystemExit(f"benchmark/workloads/{name}.json is not the "
                          "BENCHMARK.json entry's configuration and traffic")
     config = json.loads((root / conf["file"]).read_text())
+    family(config["family"])
 
     def mine(metrics):
         return [m for m in metrics
@@ -72,7 +83,10 @@ def load_cell(name, root=ROOT):
 
 @dataclasses.dataclass
 class Run:
-    """What a run leaves for the metric readers."""
+    """What a run leaves for the metric readers.  A traced run adds its
+    `trace` (benchmark/trace.py), its program `spans` (benchmark/spans.py;
+    None where the trace holds none) and the `counters` its traced steps
+    moved (`utils.metrics.counters_since`)."""
     cell: Cell
     precision: str
     stars: int
@@ -87,6 +101,8 @@ class Run:
     window_steps: int
     theta0: list
     trace: object = None
+    spans: object = None
+    counters: dict = None
 
     @property
     def walkers(self):
@@ -219,13 +235,19 @@ def run(cell, seed, seconds, traced, device, t_start, control=False,
     _sync(dev)
     window_s = time.perf_counter() - t0
     log(f"window {window_s:.2f} s, {steps} steps")
-    trace = None
+    trace = sp = moved = None
     if traced:
-        state, trace = _traced(problem, hp, betas, state, gen, tr, dev)
+        # the device trace with the program's tracing off, as the readers
+        # of the whole step have always read it; then the spans and the
+        # counters, whose host work and sync warnings would move those
+        state, trace, _, _ = profiled(problem, hp, betas, state, gen, tr,
+                                      dev, on=False)
+        state, _, sp, moved = profiled(problem, hp, betas, state, gen, tr,
+                                       dev)
     answers = _rows(state, idx)
     peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
             else 0)
-    fam = FAMILIES[cfg["family"]]
+    fam = family(cfg["family"])
     del state, problem, problems
     gc.collect()
     if dev.type == "cuda":
@@ -244,7 +266,7 @@ def run(cell, seed, seconds, traced, device, t_start, control=False,
                  else fam.n_components(cfg) * cfg["n_bins"])
     result_run = Run(cell, precision, n_stars, temps, chains, cfg["n_bins"],
                      fam.n_components(cfg), comp_bins, setup_s, build_s,
-                     window_s, steps, records, trace)
+                     window_s, steps, records, trace, sp, moved)
     metrics = {}
     for m in (cell.per_layer if traced else cell.end_to_end):
         v = read_metric(m["name"], result_run)
@@ -263,26 +285,33 @@ def run(cell, seed, seconds, traced, device, t_start, control=False,
     return result
 
 
-def _traced(problem, hp, betas, state, gen, tr, dev):
-    """`trace_steps` frozen steps under torch.profiler; (state, Trace)."""
+def profiled(problem, hp, betas, state, gen, tr, dev, on=True):
+    """`trace_steps` frozen steps under torch.profiler, with the program's
+    tracing `on` or off; (state, Trace, Spans or None (off, or no span in
+    the trace), counters moved)."""
     from torch.profiler import ProfilerActivity, profile
     from tamcmc_tpu_torch.sampler.driver import run_phase
+    from tamcmc_tpu_torch.utils.metrics import (counters, counters_since,
+                                                tracing)
     n, thin = tr["trace_steps"], tr["thin"]
     acts = [ProfilerActivity.CPU]
     if dev.type == "cuda":
         acts.append(ProfilerActivity.CUDA)
     _sync(dev)
-    with profile(activities=acts) as prof:
+    with profile(activities=acts) as prof, tracing(on):
+        before = counters()
         t0 = time.perf_counter()
         state, _ = run_phase(problem, hp, betas, state, gen, n, adapt=False,
                              thin=thin, chunk=n // thin)
         _sync(dev)
         window_s = time.perf_counter() - t0
+        moved = counters_since(before)
     tmp = pathlib.Path(tempfile.mkdtemp(prefix="bench-trace-"))
     try:
         path = tmp / "trace.json"
         prof.export_chrome_trace(str(path))
-        return state, trace_mod.read_chrome_trace(path, n, window_s)
+        return (state, trace_mod.read_chrome_trace(path, n, window_s),
+                spans.read(path, n) if on else None, moved)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

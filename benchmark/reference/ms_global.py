@@ -25,10 +25,18 @@ from benchmark.reference.priors import interp
 G_CGS = 6.667e-8
 RHO_SUN = 1.408
 DNU_SUN = 135.1
+# the CPU cut of the tests: three orders about numax on 3,000 bins
+SMALL = {"n_orders": 3, "n_bins": 3000, "nu_lo": 2200 - 85 * 2.5,
+         "nu_hi": 2200 + 85 * 2.5}
 
 
 def n_per_l(cfg):
     return [cfg["n_orders"] if l <= cfg["lmax"] else 0 for l in range(4)]
+
+
+def spec_kwargs(cfg):
+    """The problem file's [spec] block."""
+    return {"n_per_l": n_per_l(cfg)}
 
 
 def blocks(cfg):

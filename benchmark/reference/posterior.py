@@ -16,10 +16,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from benchmark.reference import ms_global, rgb_asympt, spectrum
+from benchmark.reference import family, spectrum
 from benchmark.reference.priors import NEG_BIG, log_prior
-
-FAMILIES = {"ms_global": ms_global, "rgb_asympt": rgb_asympt}
 
 
 @dataclasses.dataclass
@@ -41,7 +39,7 @@ class Target:
 
     @property
     def family(self):
-        return FAMILIES[self.cfg["family"]]
+        return family(self.cfg["family"])
 
     def __post_init__(self):
         if self.cfg.get("windows"):
@@ -86,7 +84,7 @@ def window_ranges(cfg, p0s, nu_start, nu_step, n_bins):
     """Each component's bin range (comp_lo, comp_hi) from the stars' start
     points p0s (S, D): every star's window c -/+ (trunc max(Gamma, 1e-3) +
     margin), their union per component, then the window groups."""
-    fam = FAMILIES[cfg["family"]]
+    fam = family(cfg["family"])
     lo = hi = None
     for p0 in np.asarray(p0s, np.float64):
         with torch.no_grad():

@@ -31,6 +31,8 @@ from benchmark.reference.priors import interp
 
 N_BISECT = 45
 WIDTH_MIN = 0.005
+# the CPU cut of the tests: the window on 1,500 bins
+SMALL = {"n_bins": 1500}
 
 
 def pole_counts(cfg):
@@ -39,6 +41,14 @@ def pole_counts(cfg):
     n_p = int(math.ceil((hi - lo) / cfg["dnu"])) + 4
     n_g = int(math.ceil(1e6 / cfg["dpi1"] * (1.0 / lo - 1.0 / hi))) + 4
     return n_p, n_g
+
+
+def spec_kwargs(cfg):
+    """The problem file's [spec] block."""
+    n_p, n_g = pole_counts(cfg)
+    return {"n_orders": cfg["n_orders"], "numin": float(cfg["numin"]),
+            "numax_win": float(cfg["numax_win"]), "n_p_poles": n_p,
+            "n_g_poles": n_g}
 
 
 def blocks(cfg):

@@ -41,9 +41,50 @@ def test_a_small_run_is_correct(name):
 def test_a_traced_run_reports_the_host_side_metrics():
     out = _run(tiny.small("kepler_full.stack8"), traced=True)
     # no device on the CPU: the trace's readers find nothing to read
-    assert set(out["metrics"]) == {"problem_build_s", "ess_per_walker_step"}
+    assert set(out["metrics"]) == {"problem_build_s", "ess_per_walker_step",
+                                   "host_step_ms", "host_syncs_per_step"}
     assert out["device"]["window_s"] > 0
     assert out["breakdown"] == {"device_ops": [], "idle_gaps": []}
+
+
+HOST = ("host_step_ms", "host_syncs_per_step")
+DEVICE = ("assembly_device_ms", "assembly_idle_ms", "sampler_device_ms")
+
+
+@pytest.mark.parametrize("name, suffix", [("kepler_full.stack8", ""),
+                                          ("subgiant_mixed.stack63",
+                                           ".dense")])
+def test_a_traced_run_reads_the_programs_spans_and_counters(name, suffix,
+                                                           monkeypatch):
+    """The span and counter readers of a traced run on the CPU: the host
+    figures as numbers, the device figures absent (None: no device
+    operation in the trace).  The trace of the whole step comes from a
+    pass with the program's tracing off, the spans from a second one."""
+    passes = []
+    profiled = harness.profiled
+
+    def spy(*args, **kw):
+        passes.append(kw.get("on", True))
+        return profiled(*args, **kw)
+    monkeypatch.setattr(harness, "profiled", spy)
+    cell = tiny.small(name)
+    names = {m["name"] for m in cell.per_layer}
+    assert {n + suffix for n in HOST + DEVICE} <= names
+    out = _run(cell, traced=True)
+    assert passes == [False, True]
+    got = out["metrics"]
+    assert got["host_step_ms" + suffix]["value"] > 0
+    assert got["host_step_ms" + suffix]["unit"] == "ms/step"
+    # nothing synchronises on the CPU
+    assert got["host_syncs_per_step" + suffix]["value"] == 0.0
+    assert not {n + suffix for n in DEVICE} & set(got)
+    assert out["correct"]
+
+
+def test_an_untraced_run_keeps_no_spans():
+    run = harness.Run(None, "f32", 1, 1, 1, 1, 1, 1, 0.0, 0.0, 1.0, 1, [])
+    for name in HOST + DEVICE:
+        assert harness.read_metric(name, run) is None
 
 
 @pytest.mark.parametrize("name, chains", [("kepler_full.stack8", 2),
@@ -140,6 +181,29 @@ def test_without_the_program_a_run_fails_and_prints_no_result(tmp_path):
         cwd=tmp_path, capture_output=True, text=True, timeout=300)
     assert out.returncode != 0
     assert '"correct"' not in out.stdout
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("name", CELLS)
+def test_the_layers_device_ms_add_up_on_the_card(name):
+    """The spans' parts, assembly + sampler + unattributed, against the
+    whole non-kernel device time of the same traced steps, within 2 %."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA card here")
+    import types
+    from benchmark import spans
+    from benchmark.tools import span_breakdown
+    dev = torch.device("cuda")
+    cell = harness.load_cell(name)
+    problem, hp, betas, state, gen = span_breakdown.setup(cell, SEED, dev)
+    state, whole, sp, moved = harness.profiled(problem, hp, betas, state,
+                                               gen, cell.traffic, dev)
+    run = types.SimpleNamespace(trace=whole, spans=sp, counters=moved)
+    parts = sum(harness.read_metric(n, run) for n in
+                ("assembly_device_ms", "sampler_device_ms"))
+    parts += spans.layer_metrics(sp, moved["syncs"])["unattributed_device_ms"]
+    whole_ms = harness.read_metric("nonkernel_device_ms", run)
+    assert parts == pytest.approx(whole_ms, rel=0.02)
 
 
 @pytest.mark.card

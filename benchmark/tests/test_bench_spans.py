@@ -170,7 +170,7 @@ def test_the_span_events_move_no_existing_reader(tmp_path):
     names = sorted(p.stem for p in
                    (pathlib.Path(harness.__file__).parent / "metrics")
                    .glob("*.py"))
-    assert len(names) == 18
+    assert len(names) == 28
     for name in names:
         assert harness.read_metric(name, plain) == \
             harness.read_metric(name, traced), name

@@ -3,6 +3,7 @@
 import dataclasses
 
 from benchmark import harness
+from benchmark.reference import family
 
 
 def cell(name, config=None, **traffic):
@@ -13,17 +14,15 @@ def cell(name, config=None, **traffic):
                                traffic=dict(c.traffic, **traffic))
 
 
-SMALL_MS = {"n_orders": 3, "n_bins": 3000, "nu_lo": 2200 - 85 * 2.5,
-            "nu_hi": 2200 + 85 * 2.5}
-SMALL_RGB = {"n_bins": 1500}
 SMALL_RUN = {"stars": 2, "chains": 4, "chunk": 2, "check_walkers": 8,
              "check_block": 4}
 
 
 def small(name, **traffic):
-    """The cell at a small grid and few walkers."""
+    """The cell at its family's small grid (its SMALL keys) and few
+    walkers."""
     c = harness.load_cell(name)
-    conf = SMALL_MS if c.config["family"] == "ms_global" else SMALL_RGB
+    conf = family(c.config["family"]).SMALL
     run = dict(SMALL_RUN, adapt_steps=min(c.traffic["adapt_steps"], 20),
                **traffic)
     if c.traffic["stars"] == 1:

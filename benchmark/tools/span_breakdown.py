@@ -22,7 +22,6 @@ import pathlib
 import shutil
 import sys
 import tempfile
-import time
 
 ROOT = pathlib.Path(__file__).resolve().parents[2]
 
@@ -57,35 +56,14 @@ def setup(cell, seed, dev):
 
 def traced_pass(problem, hp, betas, state, gen, tr, dev, on):
     """The cell's trace_steps frozen steps under torch.profiler with the
-    program's tracing `on` or off; (state, line)."""
-    from torch.profiler import ProfilerActivity, profile
+    program's tracing `on` or off (harness.profiled); (state, line)."""
     from benchmark import spans
     from benchmark import trace as trace_mod
-    from benchmark.harness import _sync
-    from tamcmc_tpu_torch.sampler.driver import run_phase
-    from tamcmc_tpu_torch.utils.metrics import (counters, counters_since,
-                                                tracing)
-    n, thin = tr["trace_steps"], tr["thin"]
-    acts = [ProfilerActivity.CPU]
-    if dev.type == "cuda":
-        acts.append(ProfilerActivity.CUDA)
-    _sync(dev)
-    with profile(activities=acts) as prof, tracing(on):
-        before = counters()
-        t0 = time.perf_counter()
-        state, _ = run_phase(problem, hp, betas, state, gen, n, adapt=False,
-                             thin=thin, chunk=n // thin)
-        _sync(dev)
-        window_s = time.perf_counter() - t0
-        moved = counters_since(before)
-    tmp = pathlib.Path(tempfile.mkdtemp(prefix="bench-trace-"))
-    try:
-        path = tmp / "trace.json"
-        prof.export_chrome_trace(str(path))
-        whole = trace_mod.read_chrome_trace(path, n, window_s)
-        sp = spans.read(path, n)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    from benchmark.harness import profiled
+    n = tr["trace_steps"]
+    state, whole, sp, moved = profiled(problem, hp, betas, state, gen, tr,
+                                       dev, on)
+    window_s = whole.window_s
     line = {"tracing": on, "steps": moved["steps"],
             "host_ms_per_step": 1e3 * window_s / n,
             "idle_share": (100.0 * (1.0 - whole.busy_s / window_s)

@@ -25,8 +25,7 @@ import pathlib
 import numpy as np
 import torch
 
-from benchmark.reference import posterior, spectrum
-from benchmark.reference.posterior import FAMILIES
+from benchmark.reference import family, posterior, spectrum
 
 
 @dataclasses.dataclass
@@ -77,7 +76,7 @@ def _start(cfg, truth, rows, rng):
 def make_stars(cfg, n_stars, catalogue_seed, seed, device):
     """The catalogue's n_stars stars in the order of a run with seed
     `seed`, on `device`."""
-    fam = FAMILIES[cfg["family"]]
+    fam = family(cfg["family"])
     nu64 = np.linspace(cfg["nu_lo"], cfg["nu_hi"], cfg["n_bins"])
     nu = torch.as_tensor(np.float32(nu64).astype(np.float64), device=device)
     starts, rows, specs = [], [], []
@@ -109,21 +108,10 @@ def _toml(v):
     return repr(float(v)) if isinstance(v, float) else str(v)
 
 
-def spec_kwargs(cfg):
-    """The [spec] block of the configuration's model."""
-    if cfg["family"] == "ms_global":
-        return {"n_per_l": [cfg["n_orders"] if l <= cfg["lmax"] else 0
-                            for l in range(4)]}
-    from benchmark.reference.rgb_asympt import pole_counts
-    n_p, n_g = pole_counts(cfg)
-    return {"n_orders": cfg["n_orders"], "numin": float(cfg["numin"]),
-            "numax_win": float(cfg["numax_win"]), "n_p_poles": n_p,
-            "n_g_poles": n_g}
-
-
 def write_problems(cfg, stars, n_temps, n_chains, outdir):
     """Each star's spectrum.npz and problem.toml under outdir/star_<s>;
     returns the problem files' paths."""
+    spec = family(cfg["family"]).spec_kwargs(cfg)
     paths = []
     for s in range(stars.p0.shape[0]):
         d = pathlib.Path(outdir) / f"star_{s}"
@@ -135,7 +123,7 @@ def write_problems(cfg, stars, n_temps, n_chains, outdir):
             lines += ["auto_window = true",
                       f"window_margin = {float(cfg['window_margin'])!r}"]
         lines += ["", "[spec]"]
-        lines += [f"{k} = {_toml(v)}" for k, v in spec_kwargs(cfg).items()]
+        lines += [f"{k} = {_toml(v)}" for k, v in spec.items()]
         lines += ["", "[sampler]", "use_drift = true",
                   f"lambda_temp = {float(cfg['lambda_temp'])!r}",
                   f"dN_mixing = {int(cfg['dN_mixing'])}",
