@@ -19,6 +19,7 @@ from tamcmc_tpu_torch.ops.alm import alm_shifts, alm_table
 from tamcmc_tpu_torch.ops.rotation import (
     centrifugal_shift_aj, split_frequencies_a1etaa3, split_frequencies_aj)
 from tamcmc_tpu_torch.ops.visibilities import mode_visibility
+from tamcmc_tpu_torch.utils.metrics import span
 
 # np.spacing(np.finfo(f32).eps): below this a knot spacing counts as zero
 # (jnp.interp's guard against NaN gradients on coincident knots)
@@ -132,17 +133,21 @@ def assemble_components_ajAlm(freqs_per_l, heights_l0, widths_l0,
     """Odd a-coefficients (a1, a3, a5), the centrifugal eta0 term and the
     Alm activity shifts on l > 0 (reference `model_MS_Global_ajAlm_*` [U]):
     the even asphericity comes from the activity model, not from fitted
-    a2/a4/a6.  The activity filter is evaluated once for all degrees."""
+    a2/a4/a6.  The activity filter is evaluated once for all degrees; the
+    table and each degree's shifts run in the `alm` span."""
     zero = torch.zeros_like(a1)
     aj = torch.stack([a1, zero, a3, zero, a5, zero], -1)
-    table = alm_table(theta0, delta, filter_kind)
+    with span("alm"):
+        table = alm_table(theta0, delta, filter_kind)
 
     def centres(l, fl):
         nus = centrifugal_shift_aj(l, split_frequencies_aj(l, fl, aj), eta0,
                                    a1)
         if l > 0:
-            nus = nus + alm_shifts(l, fl, epsilon, theta0, delta,
+            with span("alm"):
+                shift = alm_shifts(l, fl, epsilon, theta0, delta,
                                    kind=filter_kind, table=table)
+            nus = nus + shift
         return nus
 
     return _assemble_components(freqs_per_l, heights_l0, widths_l0,

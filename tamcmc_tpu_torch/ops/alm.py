@@ -17,10 +17,17 @@ quadrature whose nodes and kernel weights are constants, uploaded once per
 Batched over leading dims: theta0, delta, epsilon are (...,) per walker, so
 the filter is (..., 96).  A_lm depends on |m| only, so the ten distinct
 (l, |m|) kernels for l <= 3 form one (10, 96) constant that meets one filter
-evaluation (`alm_table`); `alm` and `alm_shifts` index the result.  The
+evaluation (`alm_table`); `alm` and `alm_shifts` index the result.  Each
+evaluation bumps the host counter ALM_TABLES["alm"] (no launch, no
+synchronise), which `utils.metrics.COUNTERS` holds as `alm_tables`.
+
+The gate, the filter the MS_Global ajAlm models use, is evaluated as one
+(..., n, 4) sigmoid of the four band edges of both hemispheres, and the
+shifts gather their m = -l..l rows with one index: each is one launch on
+the card, which runs these small operations at the host's pace.  The
 clamps split a gradient at an exact tie differently from jnp.maximum /
-jnp.minimum; off the ties (delta = 1e-3, a filter exactly 0 or 1) both give
-the same gradient.
+jnp.minimum; off the ties (delta = 1e-3, a filter exactly 0 or 1) both
+give the same gradient.
 """
 
 from __future__ import annotations
@@ -41,6 +48,14 @@ LMAX = 3
 _ROW = {(l, m): l * (l + 1) // 2 + m
         for l in range(LMAX + 1) for m in range(l + 1)}
 _NP_DTYPES = {torch.float32: np.float32, torch.float64: np.float64}
+# the gate's four edges, latitude theta0 * _EDGE_T0 + delta * _EDGE_D: the
+# lower and upper edge of the northern band, then of the southern; a lower
+# edge's sigmoid rises with latitude, an upper edge's falls (_EDGE_SIGN)
+_EDGE_T0 = (1.0, 1.0, -1.0, -1.0)
+_EDGE_D = (-0.5, 0.5, -0.5, 0.5)
+_EDGE_SIGN = (1.0, -1.0, 1.0, -1.0)
+
+ALM_TABLES = {"alm": 0}
 
 
 def _plm2(l: int, m: int, x):
@@ -80,6 +95,21 @@ def _quadrature(dtype, device):
     return tuple(torch.as_tensor(a, device=device) for a in (th, wk, den))
 
 
+@functools.lru_cache(maxsize=16)
+def _gate_constants(dtype, device, smooth):
+    """The gate's edge coefficients (4,), (4,) and slopes sign / smooth
+    (4,) on `device`."""
+    return tuple(torch.tensor(v, dtype=dtype, device=device) for v in
+                 (_EDGE_T0, _EDGE_D, [s / smooth for s in _EDGE_SIGN]))
+
+
+@functools.lru_cache(maxsize=64)
+def _m_rows(l: int, device):
+    """alm_table's rows of m = -l..l, (2l+1,) on `device`."""
+    return torch.tensor([_ROW[l, abs(m)] for m in range(-l, l + 1)],
+                        device=device)
+
+
 def activity_filter(theta, theta0, delta, kind: str = "gate",
                     smooth: float = 0.02):
     """Hemisphere-symmetric latitude filter W(theta) in [0, 1].
@@ -91,12 +121,14 @@ def activity_filter(theta, theta0, delta, kind: str = "gate",
     lat = torch.pi / 2 - theta          # latitude of the quadrature node
     d = torch.clamp(delta, min=1e-3)[..., None]
     theta0 = theta0[..., None]
+    if kind == "gate":
+        c0, cd, slope = _gate_constants(d.dtype, d.device, smooth)
+        edges = torch.addcmul(theta0 * c0, d, cd)                # (..., 4)
+        s = torch.sigmoid((lat[:, None] - edges[..., None, :]) * slope)
+        # each band rises at its lower edge and falls at its upper
+        return torch.clamp((s[..., 0::2] * s[..., 1::2]).sum(-1), max=1.0)
 
     def band(c):
-        if kind == "gate":
-            lo, hi = c - d / 2.0, c + d / 2.0
-            return (torch.sigmoid((lat - lo) / smooth)
-                    * torch.sigmoid((hi - lat) / smooth))
         if kind == "triangle":
             return torch.clamp(1.0 - torch.abs(lat - c) / (d / 2.0), min=0.0)
         if kind == "gauss":
@@ -112,6 +144,7 @@ def alm_table(theta0, delta, kind: str = "gate"):
     """A_lm of every (l, |m|), l <= 3, from one filter evaluation:
     theta0, delta (...,) in radians -> (..., 10), row l(l+1)/2 + |m|."""
     th, wk, den = _quadrature(theta0.dtype, theta0.device)
+    ALM_TABLES["alm"] += 1
     W = activity_filter(th, theta0, delta, kind=kind)        # (..., 96)
     return (wk * W[..., None, :]).sum(-1) / den
 
@@ -133,7 +166,5 @@ def alm_shifts(l: int, nu_nl, epsilon, theta0, delta, kind: str = "gate",
     filter evaluation for all degrees).  Returns (..., N_l, 2l+1)."""
     if table is None:
         table = alm_table(theta0, delta, kind)
-    o = _ROW[l, 0]
-    a = torch.cat([table[..., o + 1:o + l + 1].flip(-1),
-                   table[..., o:o + l + 1]], -1)             # m = -l..l
+    a = table.index_select(-1, _m_rows(l, table.device))    # m = -l..l
     return (epsilon[..., None, None] * nu_nl[..., None]) * a[..., None, :]

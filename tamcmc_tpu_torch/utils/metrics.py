@@ -16,8 +16,10 @@ registry of host counters (never a device read): `steps` and `chunks` run
 by `sampler.driver.run_phase`, `launches` (the Lorentzian kernels' launch
 counts, `ops.lorentzian_kernel.LAUNCHES`), `armm_launches` (the ARMM
 bisection kernels', `ops.armm_kernel.ARMM_LAUNCHES`: `armm` one a solve on
-the card, `armm_bwd` one a gradient through it) and, while tracing is on,
-`syncs`: each synchronising CUDA call, keyed by the innermost open span.
+the card, `armm_bwd` one a gradient through it), `alm_tables` (the
+activity filter's evaluations, `ops.alm.ALM_TABLES`: `alm` one a forward
+of an ajAlm assembly) and, while tracing is on, `syncs`: each synchronising
+CUDA call, keyed by the innermost open span.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ import warnings
 
 import torch
 
+from tamcmc_tpu_torch.ops.alm import ALM_TABLES
 from tamcmc_tpu_torch.ops.armm_kernel import ARMM_LAUNCHES
 from tamcmc_tpu_torch.ops.lorentzian_kernel import LAUNCHES
 
@@ -65,7 +68,7 @@ SYNC_WARNING = "called a synchronizing CUDA operation"
 NO_SPAN = "(none)"
 
 COUNTERS = {"steps": 0, "chunks": 0, "syncs": {}, "launches": LAUNCHES,
-            "armm_launches": ARMM_LAUNCHES}
+            "armm_launches": ARMM_LAUNCHES, "alm_tables": ALM_TABLES}
 
 _on = False
 _open = []                      # names of the open spans, innermost last

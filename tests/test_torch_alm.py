@@ -159,3 +159,66 @@ def test_quadrature_constants_are_cached_per_dtype_and_device():
     assert th.dtype == wk.dtype == den.dtype == torch.float32
     assert t_alm._quadrature(torch.float64,
                              torch.device("cpu"))[1].dtype == torch.float64
+
+
+def test_the_gate_is_the_band_by_band_product():
+    """The gate's one (..., n, 4) sigmoid of the four edges equals each
+    hemisphere's band as the product of its two edge sigmoids, summed and
+    capped at 1, in float64, values and gradients."""
+    theta0, delta, _ = (torch.as_tensor(a, dtype=torch.float64)
+                        for a in _walkers(30))
+    th = torch.as_tensor(j_alm._THETA)
+    g = torch.randn((5, 96), dtype=torch.float64,
+                    generator=torch.Generator().manual_seed(31))
+
+    def by_band(t0, dl):
+        lat = torch.pi / 2 - th
+        d = torch.clamp(dl, min=1e-3)[:, None]
+
+        def band(c):
+            return (torch.sigmoid((lat - (c - d / 2)) / 0.02)
+                    * torch.sigmoid(((c + d / 2) - lat) / 0.02))
+        return torch.clamp(band(t0[:, None]) + band(-t0[:, None]), max=1.0)
+
+    outs, grads = [], []
+    for fn in (lambda a, b: t_alm.activity_filter(th, a, b), by_band):
+        leaves = [theta0.clone().requires_grad_(), delta.clone()
+                  .requires_grad_()]
+        out = fn(*leaves)
+        outs.append(out.detach())
+        grads.append(torch.autograd.grad(out, leaves, g))
+    torch.testing.assert_close(outs[0], outs[1], rtol=0, atol=1e-14)
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=1e-12, atol=1e-12)
+
+
+def test_the_activity_block_takes_few_operations():
+    """One table and the shifts of l = 1..3, forward and backward: at most
+    80 dispatched operations that are not views, each a launch on the
+    card.  With each band and edge as a tensor of its own, and each
+    degree's rows flipped and concatenated, the block took 119, which
+    left the ajAlm step's host further behind its device."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    theta0, delta, epsilon = (torch.as_tensor(a).requires_grad_()
+                              for a in _walkers(40))
+    gen = torch.Generator().manual_seed(41)
+    nus = [(2000 + 1000 * torch.rand((5, 14), generator=gen))
+           .requires_grad_() for _ in range(3)]
+    ups = [torch.randn((5, 14, 2 * l + 1), generator=gen) for l in (1, 2, 3)]
+    t_alm.alm_table(theta0, delta)              # the constants, uploaded
+    [t_alm.alm_shifts(l, nus[l - 1], epsilon, theta0, delta)
+     for l in (1, 2, 3)]
+    ops = []
+
+    class Ops(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if not func.is_view:
+                ops.append(func)
+            return func(*args, **(kwargs or {}))
+
+    with Ops():
+        table = t_alm.alm_table(theta0, delta)
+        outs = [t_alm.alm_shifts(l, nus[l - 1], epsilon, theta0, delta,
+                                 table=table) for l in (1, 2, 3)]
+        torch.autograd.grad(outs, [theta0, delta, epsilon, *nus], ups)
+    assert len(ops) <= 80, len(ops)

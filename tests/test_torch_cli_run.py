@@ -297,7 +297,8 @@ def test_profile_writes_a_chrome_trace_of_the_acquire_phase(tmp_path):
         if e["event"] == "phase_end"}
     assert "counters" not in ends["B"] and "counters" not in ends["L"]
     assert ends["A"]["counters"] == {"steps": 8, "chunks": 1, "syncs": {},
-                                     "launches": {}, "armm_launches": {}}
+                                     "launches": {}, "armm_launches": {},
+                                     "alm_tables": {}}
 
 
 def test_a_failing_phase_aborts_the_writer_and_propagates(tmp_path,
