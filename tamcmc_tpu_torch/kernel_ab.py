@@ -49,7 +49,8 @@ the difference) and plus the chain's forward, and through the package
 forward and backward against the unfused path; beside the bound stands the
 MUFU floor (`mufu_floor_ms`).
 
-With `f64` it also runs `check_clamp_path`.
+With `f32` it also runs `check_clamp_path_f32`, with `f64`
+`check_clamp_path`.
 
 `--sass` writes `cuobjdump -sass` of the build beside the JSON and prints,
 per kernel instantiation, its registers a thread and bytes of local memory
@@ -199,6 +200,62 @@ def check_clamp_path(dev, tol=1e-10, bt=64, nc=8, n=40000, seed=5):
                      "grad_max_rel_err": rel}
         if not (val and rel <= tol):
             raise AssertionError(f"float64 clamped loops, {name}: {res}")
+    return res
+
+
+def check_clamp_path_f32(dev, tol=1e-4, bt=64, nc=8, n=40000, seed=6):
+    """The float32 backward's clamped loop (csrc/lorentzian.cu bwd_sums
+    with CLAMP, which a (walker, component, chunk) runs where
+    rcp_unclamped fails) against the plain version in float64: dense mode,
+    components in pairs (0, 1), ..., (6, 7).  Walker 0's component 0 lies
+    at 1e20 (|x| past 2^62), walker 5's component 3 at 3e12 with its width
+    at the floor, walker 6's component 4 at NaN: each pair runs its two
+    components one at a time, one clamped.  Walker 7's components 6 and 7
+    lie at +-1e20: a clamped pair.  Values and the gradients of sum(g
+    modes), NaN where the plain version is NaN, within `tol` elsewhere
+    (|a - b| <= tol + tol |b| for values, |a - b| <= tol max |b| for
+    gradients); and every gradient of a component left as it was equals,
+    bit for bit, the same run's on unchanged inputs, whatever its partner
+    runs.  Raises otherwise; returns the largest errors."""
+    rng = np.random.default_rng(seed)
+    nu = torch.linspace(1000.0, 1400.0, n, device=dev)
+    base = [rng.uniform(*r, (bt, nc)).astype(np.float32)
+            for r in ((1, 5), (1050, 1350), (0.5, 3), (-0.1, 0.1))]
+    H, Cc, W, B = (a.copy() for a in base)
+    Cc[0, 0], Cc[5, 3], W[5, 3], Cc[6, 4] = 1e20, 3e12, 1e-7, np.nan
+    Cc[7, 6], Cc[7, 7] = 1e20, -1e20
+    changed = np.zeros((bt, nc), bool)
+    changed[0, 0] = changed[5, 3] = changed[6, 4] = True
+    changed[7, 6] = changed[7, 7] = True
+    g = torch.as_tensor(rng.normal(size=(bt, n)), dtype=torch.float32,
+                        device=dev)
+
+    def run(args, fn, dtype):
+        leaves = [torch.as_tensor(np.asarray(a), dtype=dtype,
+                                  device=dev).requires_grad_(True)
+                  for a in args]
+        out = fn(nu.to(dtype), *leaves)
+        return out.detach(), torch.autograd.grad(out, leaves, g.to(dtype))
+    out, grads = run((H, Cc, W, B), L.sum_lorentzians, torch.float32)
+    want, want_g = run((H, Cc, W, B), L.sum_lorentzians_plain, torch.float64)
+    _, clean = run(base, L.sum_lorentzians, torch.float32)
+    out = out.double()
+    nan_ok = bool(torch.equal(out.isnan(), want.isnan()))
+    fin = ~want.isnan()
+    val = float((out - want)[fin].abs().max())
+    val_ok = bool(((out - want).abs() <= tol + tol * want.abs())[fin].all())
+    rel, same = 0.0, True
+    keep = torch.as_tensor(~changed, device=dev)
+    for x, y, c in zip(grads, want_g, clean):
+        x = x.double()
+        nan_ok = nan_ok and bool(torch.equal(x.isnan(), y.isnan()))
+        fin = ~y.isnan()
+        rel = max(rel, float((x - y)[fin].abs().max() / y[fin].abs().max()))
+        same = same and bool(torch.equal(x.float()[keep], c[keep]))
+    res = {"max_abs_err": val, "grad_max_rel_err": rel, "nan_where_plain":
+           nan_ok, "unchanged_components_bitwise": same}
+    if not (val_ok and rel <= tol and nan_ok and same):
+        raise AssertionError(f"float32 clamped loop: {res}")
     return res
 
 
@@ -737,6 +794,24 @@ def _print_sass(kernels):
                        f"{loop['call']})")
             print(f"sass {kern}: loop of {loop['instructions']} "
                   f"instructions{per} {loop['ops']}")
+        if kern == "lorentz_bwd_kernel<0,0>":
+            for comps, clamped, per in group_loops(k.get("loops", ())):
+                print(f"sass {kern}: "
+                      f"{'pair' if comps == 2 else f'{comps:g}-component'} "
+                      f"loop {'with' if clamped else 'without'} the clamp: "
+                      f"{per:.2f} instructions a component-bin")
+
+
+def group_loops(loops):
+    """(components, clamped, instructions a component-bin) of each inner
+    loop of a float32 backward (`_parse_sass` loops without a shuffle):
+    a float4 group of 4 bins takes two shared loads (nu, g), so a pass over
+    rcp component-bins covers rcp / (2 LDS) components; clamped where the
+    loop holds an FMNMX (fminf(y, 2^125) before the reciprocal)."""
+    return [(loop["rcp"] / (2 * loop["ops"]["LDS"]),
+             bool(loop["ops"].get("FMNMX")), loop["per_comp_bin"])
+            for loop in loops if loop.get("rcp") and loop["ops"].get("LDS")
+            and not loop["ops"].get("SHFL")]
 
 
 def window_shares(nu, C, win):
@@ -765,6 +840,21 @@ def window_shares(nu, C, win):
         out[f"visited_share_{kind}"] = float(
             walkers @ (vis.sum(1) @ bins)) / triples
     return out
+
+
+def unclamped_share(nu, C, W, ranges):
+    """Share of the float32 backward's (walker, component, chunk) ranges
+    that run its loop without the reciprocal's clamp, by the rule
+    (`lorentzian_kernel.unclamped`) on the regime's inputs and the chunks of
+    the plan its launch takes: computed here, not read from the card (the
+    kernel decides per range on the device and counts nothing)."""
+    nu, C, W = (np.asarray(a.cpu() if torch.is_tensor(a) else a, np.float32)
+                for a in (nu, C, W))
+    lo, hi = ranges
+    plan = K.LorentzPlan(lo, hi, nu.shape[0]).for_walkers(C.shape[0])
+    fast = K.unclamped(nu, C, W, plan.chunk)
+    chunk_of = np.repeat(np.arange(plan.n_chunks), np.diff(plan.chunk_ptr))
+    return float(fast[:, plan.chunk_comp, chunk_of].mean())
 
 
 def _sha(t):
@@ -891,6 +981,10 @@ def main(argv=None):
         result["sass"] = _sass(info["path"], out_path.with_suffix(".sass"))
         _print_sass(result["sass"])
 
+    if "f32" in precisions and hasattr(K, "unclamped"):
+        result["clamp_path_f32"] = check_clamp_path_f32(dev)
+        print(f"float32 clamped loop against the plain float64 version: "
+              f"{result['clamp_path_f32']}")
     if "f64" in precisions:
         result["clamp_path"] = check_clamp_path(dev)
         print(f"float64 clamped loops against the plain float64 version: "
@@ -925,6 +1019,13 @@ def main(argv=None):
                   f"{reg['visited_share_bwd']:.4f} of the (walker, "
                   f"component, bin) triples; {comp_bins:.1f} in-window "
                   "component-bins a walker")
+        if "f32" in precisions and hasattr(K, "unclamped"):
+            reg["unclamped_share_by_rule"] = unclamped_share(
+                inp["nu"], inp["args"][1], inp["args"][2], inp["ranges"])
+            print(f"{name} ({bt}x{nc}x{n}): "
+                  f"{reg['unclamped_share_by_rule']:.4f} of the float32 "
+                  "backward's (walker, component, chunk) ranges without the "
+                  "reciprocal's clamp (by the rule, from the inputs)")
         launch = {}
         inp32 = inp
         for prec in precisions:

@@ -204,13 +204,170 @@ def _bwd_pairs(plan):
     return sorted(got)
 
 
+def _lane_bins(start, end):
+    """(32, L) bins of the backward's range [start, end) of a chunk in each
+    lane's order, -1 past a lane's last (csrc/lorentzian.cu bwd_sums): the
+    unaligned head a bin a lane, then float4 groups (lane l takes bins
+    a_lo + 4 l + 128 j .. + 3), then the unaligned tail a bin a lane."""
+    a_lo = min((start + 3) & ~3, end)
+    a_hi = max(end & ~3, a_lo)
+    lanes = [[] for _ in range(32)]
+    for lane, bins in enumerate(lanes):
+        if start + lane < a_lo:
+            bins.append(start + lane)
+        for i in range(a_lo + 4 * lane, a_hi, 128):
+            bins.extend(range(i, i + 4))
+        if a_hi + lane < end:
+            bins.append(a_hi + lane)
+    out = np.full((32, max(1, max(map(len, lanes)))), -1)
+    for lane, bins in enumerate(lanes):
+        out[lane, :len(bins)] = bins
+    return out
+
+
+def _fma(a, b, c):
+    """fmaf in float32: the float64 product of two floats is exact and the
+    sum is rounded once to float32 (twice where the float64 sum rounds
+    first, far rarer than any difference these tests look for)."""
+    return (np.float64(a) * b + np.float64(c)).astype(np.float32)
+
+
+def _butterfly(acc):
+    """The warp's xor butterfly over the last axis (32 lanes): lane 0's
+    sum, which every lane holds."""
+    lane = np.arange(32)
+    for off in (16, 8, 4, 2, 1):
+        acc = (acc + acc[..., lane ^ off]).astype(np.float32)
+    return acc[..., 0]
+
+
+def _bwd_record(s_nu, s_g, start, end, c, iw, wn, fast):
+    """(Bt, 6) float32 record (Gk, Su, Sp, Sq, Sr, Ss) of one backward slot
+    over bins [start, end) of a staged chunk, per walker with (Bt,)
+    constants c, iw, wn (wn None: no window), in the kernel's lanes and
+    order (csrc/lorentzian.cu bwd_bin, bwd_sums).  `fast` (Bt,) bool picks
+    the arithmetic per walker: the loop without the clamp (w = x inv,
+    p = g w; Su += fma(g, inv), Sp += p, Sq += fma(p, inv), Sr += fma(p, w);
+    Ss = Sp - Sq after the butterfly) or the first version's (y clamped at
+    2^125; u, p, q, r, s and their sums)."""
+    idx = _lane_bins(start, end)
+    bt = c.shape[0]
+    sums = {}
+    for path in {bool(f) for f in fast}:
+        acc = np.zeros((6, bt, 32), np.float32)
+        for j in range(idx.shape[1]):
+            n = idx[:, j]
+            live = (n >= 0)[None, :]
+            nn = np.where(n >= 0, n, 0)
+            with np.errstate(all="ignore"):
+                d = (s_nu[nn][None, :] - c[:, None]).astype(np.float32)
+                x = (d * iw[:, None]).astype(np.float32)
+                gm = s_g[:, nn]
+                if wn is not None:
+                    gm = np.where(np.abs(d) <= wn[:, None], gm,
+                                  np.float32(0))
+                y = _fma(x, x, np.float32(1))
+                if path:
+                    inv = (np.float32(1) / y).astype(np.float32)
+                    w = (x * inv).astype(np.float32)
+                    p = (gm * w).astype(np.float32)
+                    new = (acc[0] + gm, _fma(gm, inv, acc[1]), acc[2] + p,
+                           _fma(p, inv, acc[3]), _fma(p, w, acc[4]), acc[5])
+                else:
+                    inv = (np.float32(1) / np.minimum(
+                        y, np.float32(2.0 ** 125))).astype(np.float32)
+                    u = (gm * inv).astype(np.float32)
+                    p = (x * u).astype(np.float32)
+                    q = (p * inv).astype(np.float32)
+                    r = (x * q).astype(np.float32)
+                    new = tuple(acc[m] + v for m, v in
+                                enumerate((gm, u, p, q, r, x * r)))
+            for m in range(6):
+                acc[m] = np.where(live, np.asarray(new[m], np.float32),
+                                  acc[m])
+        rec = np.stack([_butterfly(a) for a in acc], -1)
+        if path:
+            rec[:, 5] = rec[:, 2] - rec[:, 3]
+        sums[path] = rec
+    if len(sums) == 1:
+        return sums.popitem()[1]
+    return np.where(np.asarray(fast)[:, None], sums[True], sums[False])
+
+
+def _bwd_gsum(s_g, ln):
+    """(Bt,) the sum of g over a staged chunk [0, ln) as the kernel forms it
+    once for the slots that cover the chunk whole (csrc/lorentzian.cu
+    bwd_gsum): a component's lanes, order and butterfly."""
+    idx = _lane_bins(0, ln)
+    acc = np.zeros((s_g.shape[0], 32), np.float32)
+    for j in range(idx.shape[1]):
+        n = idx[:, j]
+        acc = np.where(n >= 0, acc + s_g[:, np.where(n >= 0, n, 0)], acc)
+    return _butterfly(acc)
+
+
+def _replay_backward(plan, nu, H, C, W, B, win, g, skip=None, parent=False):
+    """numpy replay of the backward kernel over a plan: per chunk one record
+    of six sums per slot over the slot's part of the staged chunk
+    (`_bwd_record`, each (walker, component, chunk) on the path
+    `lorentzian_kernel.unclamped` gives it, or all on the first version's
+    with `parent`); in the segment and dense modes the sum of g of the
+    slots that cover the chunk whole is the chunk's, formed once as a
+    component's; per component the records added in chunk order, then the
+    closed-form epilogue.  A windowed plan's skipped slot (`skip`, as in
+    `_replay_kernels`) gets a zero record.  Returns (records (Bt, n_slots,
+    6), [gH, gC, gW, gB])."""
+    bt, nc = H.shape
+    skip = plan.windowed if skip is None else skip
+    if skip:
+        chunk_vis = tk.window_visits(nu, C, win, plan.chunk, 1)
+    fast = tk.unclamped(nu, C, W, plan.chunk) & (not parent)
+    iw = tk.half_width_inverse(W)
+    wn = win if plan.windowed else None
+    scratch = np.full((bt, plan.n_slots, 6), np.nan, np.float32)
+    for ch in range(plan.n_chunks):
+        c0 = ch * plan.chunk
+        ln = min(plan.chunk, plan.n_bins - c0)
+        s_nu, s_g = nu[c0:c0 + ln], g[:, c0:c0 + ln]
+        gsum = None
+        if not plan.windowed and not parent \
+                and plan.chunk_full[ch] > plan.chunk_ptr[ch]:
+            gsum = _bwd_gsum(s_g, ln)
+        for s in range(plan.chunk_ptr[ch], plan.chunk_ptr[ch + 1]):
+            _, start, end = _slot_range(plan, ch, s)
+            k = plan.chunk_comp[s]
+            scratch[:, s] = _bwd_record(
+                s_nu, s_g, start, end, C[:, k], iw[:, k],
+                None if wn is None else wn[:, k], fast[:, k, ch])
+            if gsum is not None and s < plan.chunk_full[ch]:
+                scratch[:, s, 0] = gsum
+            if skip:                      # the zero record of a skipped slot
+                scratch[~chunk_vis[:, k, ch], s] = 0
+    sums = np.zeros((nc, bt, 6), np.float32)
+    for k in range(nc):
+        for i in range(plan.comp_ptr[k], plan.comp_ptr[k + 1]):
+            sums[k] += scratch[:, plan.comp_slot[i]]
+    return scratch, _closed_form(sums.transpose(1, 0, 2), H, W, B, iw)
+
+
+def _closed_form(sums, H, W, B, iw):
+    """[gH, gC, gW, gB] from each (walker, component)'s six sums (Bt, NC, 6)
+    in their dtype (csrc/lorentzian.cu bwd_finish)."""
+    Gk, Su, Sp, Sq, Sr, Ss = np.moveaxis(sums, -1, 0)
+    H, B = H.astype(sums.dtype), B.astype(sums.dtype)
+    hb2 = 2 * H * B
+    dx = hb2 * Su - 2 * H * Sq - 2 * hb2 * Sr
+    dxx = hb2 * Sp - 2 * H * Sr - 2 * hb2 * Ss
+    return [B * B * Gk + Su + 2 * B * Sp, -iw * dx,
+            np.where(W > 1e-6, -dxx * iw * 0.5, 0).astype(sums.dtype),
+            hb2 * Gk + 2 * H * Sp]
+
+
 def _replay_kernels(plan, nu, H, C, W, B, win, g, skip=None, group=None):
     """numpy replay of csrc/lorentzian.cu over a plan.  Forward: per tile,
     the packed constants (c, iw, h, 2hb), (h b^2, win); components that
     cover the tile run unmasked and add h b^2 once, the rest masked per bin
-    by range and window.  Backward: per chunk one record of six sums per
-    slot over the slot's part of the staged chunk; per component the
-    records added in chunk order, then the closed-form epilogue.
+    by range and window.  Backward: `_replay_backward`.
 
     A windowed plan skips as the kernels do (`skip`, its default; False
     replays the dense traversal): a tile's component only for the walkers
@@ -226,8 +383,7 @@ def _replay_kernels(plan, nu, H, C, W, B, win, g, skip=None, group=None):
     if skip:
         walker_group = np.arange(bt) // group
         tile_vis = tk.window_visits(nu, C, win, plan.tile, group)
-        chunk_vis = tk.window_visits(nu, C, win, plan.chunk, 1)
-    iw = (2.0 / np.maximum(W, 1e-6)).astype(np.float32)
+    iw = tk.half_width_inverse(W)
     pack_a = np.stack([C, iw, H, 2 * H * B], -1)             # (bt, nc, 4)
     pack_b = np.stack([H * B * B, win if plan.windowed
                        else np.zeros_like(H)], -1)           # (bt, nc, 2)
@@ -258,41 +414,7 @@ def _replay_kernels(plan, nu, H, C, W, B, win, g, skip=None, group=None):
                 else:
                     acc += v
         out[:, n] = acc + cst
-    scratch = np.full((bt, plan.n_slots, tk.BWD_REC), np.nan, np.float32)
-    for ch in range(plan.n_chunks):
-        for s in range(plan.chunk_ptr[ch], plan.chunk_ptr[ch + 1]):
-            c0, start, end = _slot_range(plan, ch, s)
-            k = plan.chunk_comp[s]
-            s_nu = nu[c0 + start:c0 + end]
-            d = s_nu[None, :] - C[:, k:k + 1]
-            x = d * iw[:, k:k + 1]
-            inv = 1 / (1 + x * x)
-            gm = g[:, c0 + start:c0 + end]
-            if plan.windowed:
-                gm = np.where(np.abs(d) <= win[:, k:k + 1], gm, 0)
-            u = gm * inv
-            p = x * u
-            q = p * inv
-            r = x * q
-            scratch[:, s, :6] = np.stack(
-                [a.sum(-1) for a in (gm, u, p, q, r, x * r)], -1)
-            if skip:                      # the zero record of a skipped slot
-                scratch[~chunk_vis[:, k, ch], s, :6] = 0
-    grads = np.zeros((4, bt, nc), np.float32)
-    for k in range(nc):
-        sums = np.zeros((bt, 6), np.float32)
-        for i in range(plan.comp_ptr[k], plan.comp_ptr[k + 1]):
-            sums += scratch[:, plan.comp_slot[i], :6]
-        Gk, Su, Sp, Sq, Sr, Ss = sums.T
-        h, b, iwk = H[:, k], B[:, k], iw[:, k]
-        hb2 = 2 * h * b
-        dx = hb2 * Su - 2 * h * Sq - 2 * hb2 * Sr
-        dxx = hb2 * Sp - 2 * h * Sr - 2 * hb2 * Ss
-        grads[0, :, k] = b * b * Gk + Su + 2 * b * Sp
-        grads[1, :, k] = -iwk * dx
-        grads[2, :, k] = np.where(W[:, k] > 1e-6, -dxx * iwk * 0.5, 0)
-        grads[3, :, k] = hb2 * Gk + 2 * h * Sp
-    return out, list(grads)
+    return out, _replay_backward(plan, nu, H, C, W, B, win, g, skip)[1]
 
 
 # sizes: the kernels' own (one tile and one chunk at this grid) and small
@@ -344,6 +466,138 @@ def test_skipping_replay_is_bitwise_the_dense_one(group):
     assert np.array_equal(skipped[0], dense[0])
     for a, b in zip(skipped[1], dense[1]):
         assert np.array_equal(a, b)
+
+
+def _accuracy_case(case, g_kind, bt=16):
+    """(plan, nu, (H, C, W, B), g) at a cell's widths, reduced in walkers
+    and bins.  "kepler_full": 24 components over 12,000 bins of 11.33 nHz
+    at 2,000 uHz, widths 0.5-3 uHz, on the segment plan of windows of 40
+    widths + 10 uHz (ranges over several 4,096-bin chunks);
+    "subgiant_mixed": 12 components over 7,576 bins of 7.92 nHz at 100 uHz,
+    widths log-uniform from 1e-3 to 1 uHz, dense.  g: "normal", or "chi22p",
+    dlogL/dM = (S / M - 1) / M of a spectrum S = M Exp(1) around a model M
+    of these components over a background of 1."""
+    rng = np.random.default_rng(22)
+    if case == "kepler_full":
+        n, nc, nu0, df = 12000, 24, 2000.0, 0.01133
+        W = rng.uniform(0.5, 3.0, (bt, nc))
+    else:
+        n, nc, nu0, df = 7576, 12, 100.0, 0.00792
+        W = np.exp(rng.uniform(np.log(1e-3), 0.0, (bt, nc)))
+    nu = (nu0 + df * np.arange(n)).astype(np.float32)
+    C = rng.uniform(nu0 + 10 * df, nu0 + (n - 10) * df, (bt, nc))
+    C = np.sort(C, axis=1).astype(np.float32)
+    H = rng.uniform(1, 50, (bt, nc)).astype(np.float32)
+    B = rng.uniform(-0.1, 0.1, (bt, nc)).astype(np.float32)
+    W = W.astype(np.float32)
+    if case == "kepler_full":
+        plan = tk.segment_plan(tl.partition_window_groups(
+            tl.make_static_window_groups(C[0], 40 * W[0] + 10, nu0, df, n)),
+            nc, n)
+    else:
+        plan = tk.dense_plan(n, nc)
+    if g_kind == "normal":
+        g = rng.normal(size=(bt, n))
+    else:
+        x = (nu[None, None, :] - C[..., None]) * (2 / W[..., None])
+        M = 1 + np.sum(H[..., None] * (1 + 2 * B[..., None] * x)
+                       / (1 + x * x) + H[..., None] * B[..., None] ** 2, 1)
+        g = (rng.exponential(size=M.shape) - 1) / M
+    return plan, nu, (H, C, W, B), g.astype(np.float32)
+
+
+def _closed_form_f64(plan, nu, H, C, W, B, g):
+    """The gradients in float64 at the kernels' float32 x and iw: each
+    component's six sums over its range and the closed form."""
+    iw = tk.half_width_inverse(W)
+    sums = np.zeros(H.shape + (6,))
+    for k in range(H.shape[1]):
+        lo, hi = plan.comp_lo[k], plan.comp_hi[k]
+        x = ((nu[None, lo:hi] - C[:, k:k + 1]).astype(np.float32)
+             * iw[:, k:k + 1]).astype(np.float32).astype(np.float64)
+        inv = 1 / (1 + x * x)
+        gk = g[:, lo:hi].astype(np.float64)
+        sums[:, k] = np.stack([(gk * t).sum(-1) for t in (
+            1, inv, x * inv, x * inv ** 2, x * x * inv ** 2,
+            x ** 3 * inv ** 2)], -1)
+    return _closed_form(sums, H, W, B, iw.astype(np.float64))
+
+
+@pytest.mark.parametrize("g_kind", ["normal", "chi22p"])
+@pytest.mark.parametrize("case", ["kepler_full", "subgiant_mixed"])
+def test_backward_loop_loses_no_accuracy(case, g_kind):
+    """The float32 backward's loop without the clamp (Su and the products
+    into Sq and Sr by FMA, Ss = Sp - Sq), replayed in the kernel's order, is
+    as close to the float64 closed form as the first version's arithmetic:
+    each gradient's relative error |got - want| / |want| (over all walkers
+    and components) at most 1.5 times the first version's largest."""
+    plan, nu, args, g = _accuracy_case(case, g_kind)
+    H, C, W, B = args
+    assert tk.unclamped(nu, C, W, plan.chunk).all()
+    want = _closed_form_f64(plan, nu, *args, g)
+
+    def errors(parent):
+        got = _replay_backward(plan, nu, *args, None, g, parent=parent)[1]
+        return [float(np.linalg.norm(a - b) / np.linalg.norm(b))
+                for a, b in zip(got, want)]
+    new, first = errors(False), errors(True)
+    assert max(new) <= 1.5 * max(first), (new, first)
+    assert max(first) < 1e-6
+
+
+# (walker, component, chunk) of a dense 3 x 12 x 700 plan in 96-bin chunks
+# that must take the clamped loop, and the change to _segment_case's inputs
+CLAMP_CASES = {
+    "far centre": ({(1, 2, c) for c in range(8)},
+                   lambda nu, C, W: C.__setitem__((1, 2), 1e20)),
+    "nan centre": ({(0, 5, c) for c in range(8)},
+                   lambda nu, C, W: C.__setitem__((0, 5), np.nan)),
+    "inf centre": ({(2, 7, c) for c in range(8)},
+                   lambda nu, C, W: C.__setitem__((2, 7), -np.inf)),
+    "nan bin": ({(b, k, 1) for b in range(3) for k in range(12)},
+                lambda nu, C, W: nu.__setitem__(150, np.nan)),
+    # a width at the floor: |x| = |d| 2e6 passes 2^62 only past |d| of
+    # 2.3e12 uHz
+    "floor width, far centre": (
+        {(1, 3, c) for c in range(8)},
+        lambda nu, C, W: (W.__setitem__((1, 3), 1e-7),
+                          C.__setitem__((1, 3), 2.5e12))),
+    "floor width": (set(), lambda nu, C, W: W.__setitem__((0, 4), 1e-7)),
+    "floor width, |x| just below 2^62": (
+        set(), lambda nu, C, W: (W.__setitem__((2, 1), 1e-7),
+                                 C.__setitem__((2, 1), -2.3e12))),
+}
+
+
+@pytest.mark.parametrize("case", list(CLAMP_CASES))
+def test_clamp_rule(case):
+    """lorentzian_kernel.unclamped, the backward's rule for its loop without
+    the reciprocal's clamp: the ranges with |x| past 2^62, a NaN or
+    infinite centre or a NaN bin take the clamped loop, whose replayed
+    records are the first version's arithmetic bit for bit; every range
+    the rule lets through has 1 + x^2 in [1, 2^125] at every bin, where
+    the clamp changes nothing."""
+    nu, args, _, g = _segment_case(n=700, ncomp=12)
+    H, C, W, B = (a.copy() for a in args)
+    want, change = CLAMP_CASES[case]
+    change(nu, C, W)
+    plan = tk.LorentzPlan(np.zeros(12), np.full(12, 700), 700, chunk=96)
+    fast = tk.unclamped(nu, C, W, plan.chunk)
+    assert set(zip(*np.nonzero(~fast))) == want
+    recs = _replay_backward(plan, nu, H, C, W, B, None, g)[0]
+    first = _replay_backward(plan, nu, H, C, W, B, None, g, parent=True)[0]
+    iw = tk.half_width_inverse(W)
+    for ch in range(plan.n_chunks):
+        s_nu = nu[ch * 96:(ch + 1) * 96]
+        for s in range(plan.chunk_ptr[ch], plan.chunk_ptr[ch + 1]):
+            k = plan.chunk_comp[s]
+            slow = ~fast[:, k, ch]
+            assert np.array_equal(recs[slow, s], first[slow, s],
+                                  equal_nan=True)
+            x = ((s_nu[None, :] - C[fast[:, k, ch], k:k + 1])
+                 .astype(np.float32) * iw[fast[:, k, ch], k:k + 1])
+            y = _fma(x, x, np.float32(1))
+            assert np.all((y >= 1) & (y <= 2.0 ** 125))
 
 
 def _work_list_case(case):

@@ -237,3 +237,45 @@ def test_kernel_ab_mufu_floor():
         == pytest.approx(floor + 1e3 * 1280 * 120000 / (67e12 / 16))
     from tamcmc_tpu_torch.ops import lorentzian_kernel as K
     assert floor > K.bound_ms("fwd", 1280, 224, 120000, 3682749)[0]
+
+
+def test_kernel_ab_names_the_backward_loops():
+    """`--sass`: the float32 backward's inner loops by components a pass
+    (a float4 group of nu and of g a pass: two shared loads for 4 bins)
+    and by the clamp (an FMNMX before the reciprocal); a loop with
+    shuffles (an item's whole range and reduction) is not one."""
+    loops = [
+        {"rcp": 8, "ops": {"FFMA": 48, "LDS": 2, "MUFU": 8},
+         "instructions": 104, "per_comp_bin": 13.0},
+        {"rcp": 8, "ops": {"FMNMX": 8, "LDS": 4, "MUFU": 8},
+         "instructions": 145, "per_comp_bin": 18.125},
+        {"rcp": 28, "ops": {"LDS": 20, "SHFL": 45, "MUFU": 28},
+         "instructions": 721, "per_comp_bin": 25.75}]
+    assert kernel_ab.group_loops(loops) == [(2.0, False, 13.0),
+                                            (1.0, True, 18.125)]
+
+
+def test_kernel_ab_unclamped_share_by_the_rule():
+    """The share of (walker, component, chunk) ranges that skip the
+    reciprocal's clamp, by the rule, over the chunks the launch takes: one
+    centre of twelve past 2^62 in x on both of a 1,000-bin grid's chunks."""
+    nu = np.linspace(1000.0, 1100.0, 1000, dtype=np.float32)
+    rng = np.random.default_rng(0)
+    C = rng.uniform(1010, 1090, (4, 3)).astype(np.float32)
+    W = np.ones((4, 3), np.float32)
+    assert kernel_ab.unclamped_share(nu, C, W, (np.zeros(3),
+                                                np.full(3, 1000))) == 1.0
+    C[1, 2] = 1e20
+    share = kernel_ab.unclamped_share(nu, C, W, (np.zeros(3),
+                                                 np.full(3, 1000)))
+    assert share == 1 - 2 / 24
+
+
+def test_kernel_ab_clamp_check_holds_the_plain_version():
+    """`check_clamp_path_f32` on the CPU, where both sides are the plain
+    version (float32 against float64): NaN exactly where the float64 one
+    is, the rest within its tolerance, and the components left as they were
+    bit for bit those of a run on unchanged inputs."""
+    res = kernel_ab.check_clamp_path_f32(torch.device("cpu"), bt=8, n=4000)
+    assert res["nan_where_plain"] and res["unchanged_components_bitwise"]
+    assert res["grad_max_rel_err"] < 1e-6
