@@ -514,13 +514,12 @@ def _run_rank(args, shape, runner, mesh_label, distributed):
 def _run(args, device, shape, runner, mesh_label):
     from tamcmc_tpu_torch.io.checkpoint import save_checkpoint
     from tamcmc_tpu_torch.io.outputs import OutputWriter
-    from tamcmc_tpu_torch.ops.lorentzian_kernel import LAUNCHES
     from tamcmc_tpu_torch.parallel import distributed as dist_
     from tamcmc_tpu_torch.sampler.mala import init_state
     from tamcmc_tpu_torch.sampler.tempering import make_beta_ladder
-    from tamcmc_tpu_torch.utils.metrics import (MetricsLogger, counters,
-                                                counters_since, span,
-                                                tracing)
+    from tamcmc_tpu_torch.utils.metrics import (COUNTERS, MetricsLogger,
+                                                counters, counters_since,
+                                                span, tracing)
 
     precision = getattr(args, "precision", "f32")
     outdir = pathlib.Path(args.outdir)
@@ -701,7 +700,8 @@ def _run(args, device, shape, runner, mesh_label):
         # each rank's device and kernel launches, on rank 0's metrics
         steps = sum(p["steps_run"] for p in phases.values())
         for r, info in enumerate(dist_.gather_objects(
-                {"device": str(device), "launches": dict(LAUNCHES)})):
+                {"device": str(device),
+                 "launches": dict(COUNTERS["launches"])})):
             metrics.log("rank_end", rank=r, steps=steps, **info)
     if ladder is not None:
         # `evidence` integrates the Acquire logL chains over the final

@@ -49,8 +49,8 @@ def run_fit(precision, dev, phase_plan=PLAN):
     args = argparse.Namespace(demo=None, problem=str(PROBLEM), seed=SEED,
                               precision=precision)
     problem, hp, _, _ = _build_problem(args, dev)
-    if problem._pieces_hook is None:
-        raise AssertionError("the piece-wise path must be engaged")
+    if problem._chi22p_hook is None:
+        raise AssertionError("the fused likelihood must be engaged")
     return fit(problem, hp, phase_plan, T, C, SEED)
 
 

@@ -981,7 +981,7 @@ def main(argv=None):
         result["sass"] = _sass(info["path"], out_path.with_suffix(".sass"))
         _print_sass(result["sass"])
 
-    if "f32" in precisions and hasattr(K, "unclamped"):
+    if "f32" in precisions:
         result["clamp_path_f32"] = check_clamp_path_f32(dev)
         print(f"float32 clamped loop against the plain float64 version: "
               f"{result['clamp_path_f32']}")
@@ -1008,9 +1008,8 @@ def main(argv=None):
                "max_components_a_bin": _max_cover(lo, hi, n),
                "max_bins_a_component": int(np.maximum(hi - lo, 0).max()),
                "runs": {}}
-        # the function's work bounds a windowed regime (an older checkout,
-        # run in A/B turns, has no visit rule and bounds the dense sum)
-        if windowed and hasattr(K, "window_visits"):
+        # the function's work bounds a windowed regime
+        if windowed:
             reg.update(window_shares(inp["nu"], inp["args"][1], inp["win"]))
             comp_bins = reg["in_window_comp_bins_per_walker"]
             print(f"{name} ({bt}x{nc}x{n}): in-window share "
@@ -1019,7 +1018,7 @@ def main(argv=None):
                   f"{reg['visited_share_bwd']:.4f} of the (walker, "
                   f"component, bin) triples; {comp_bins:.1f} in-window "
                   "component-bins a walker")
-        if "f32" in precisions and hasattr(K, "unclamped"):
+        if "f32" in precisions:
             reg["unclamped_share_by_rule"] = unclamped_share(
                 inp["nu"], inp["args"][1], inp["args"][2], inp["ranges"])
             print(f"{name} ({bt}x{nc}x{n}): "

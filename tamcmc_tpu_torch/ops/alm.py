@@ -18,8 +18,8 @@ Batched over leading dims: theta0, delta, epsilon are (...,) per walker, so
 the filter is (..., 96).  A_lm depends on |m| only, so the ten distinct
 (l, |m|) kernels for l <= 3 form one (10, 96) constant that meets one filter
 evaluation (`alm_table`); `alm` and `alm_shifts` index the result.  Each
-evaluation bumps the host counter ALM_TABLES["alm"] (no launch, no
-synchronise), which `utils.metrics.COUNTERS` holds as `alm_tables`.
+evaluation bumps the host counter `utils.metrics.COUNTERS["alm_tables"]
+["alm"]` (no launch, no synchronise).
 
 The gate, the filter the MS_Global ajAlm models use, is evaluated as one
 (..., n, 4) sigmoid of the four band edges of both hemispheres, and the
@@ -36,6 +36,8 @@ import functools
 
 import numpy as np
 import torch
+
+from tamcmc_tpu_torch.utils.metrics import COUNTERS
 
 _QUAD_ORDER = 96
 _NODES, _WEIGHTS = np.polynomial.legendre.leggauss(_QUAD_ORDER)
@@ -54,8 +56,6 @@ _NP_DTYPES = {torch.float32: np.float32, torch.float64: np.float64}
 _EDGE_T0 = (1.0, 1.0, -1.0, -1.0)
 _EDGE_D = (-0.5, 0.5, -0.5, 0.5)
 _EDGE_SIGN = (1.0, -1.0, 1.0, -1.0)
-
-ALM_TABLES = {"alm": 0}
 
 
 def _plm2(l: int, m: int, x):
@@ -144,7 +144,7 @@ def alm_table(theta0, delta, kind: str = "gate"):
     """A_lm of every (l, |m|), l <= 3, from one filter evaluation:
     theta0, delta (...,) in radians -> (..., 10), row l(l+1)/2 + |m|."""
     th, wk, den = _quadrature(theta0.dtype, theta0.device)
-    ALM_TABLES["alm"] += 1
+    COUNTERS["alm_tables"]["alm"] += 1
     W = activity_filter(th, theta0, delta, kind=kind)        # (..., 96)
     return (wk * W[..., None, :]).sum(-1) / den
 

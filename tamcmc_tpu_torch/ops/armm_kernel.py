@@ -11,9 +11,10 @@ upstream gradient.  Both repeat the plain loop's arithmetic and autograd's
 sums one rounding at a time, so roots and gradients are the plain loop's on
 the card bit for bit (the source's note says how).
 
-This module holds the launches, the autograd Function, the launch counts
-and the plain replays the tests hold the kernels to; it routes nothing.
-ops/armm.py chooses by tensor device and calls `bisect` for CUDA tensors,
+This module holds the launches, the autograd Function and the plain
+replays the tests hold the kernels to, and counts each launch in
+`utils.metrics.COUNTERS["armm_launches"]`; it routes nothing.  ops/armm.py
+chooses by tensor device and calls `bisect` for CUDA tensors,
 which raises on anything it cannot launch: a failed build, a bad argument
 or a refused launch.
 """
@@ -26,15 +27,12 @@ import functools
 import torch
 
 from tamcmc_tpu_torch.ops import _cuda_build
+from tamcmc_tpu_torch.utils.metrics import COUNTERS
 
 MAX_BISECT = 64          # decisions a mask holds (.cu)
 # the walker scalars of a row, in the order of ops/armm.py `_f` (.cu)
 ROW = ("dnu", "eps_p", "dpi1", "eps_g", "q", "delta0l", "alpha_p", "nmax_x",
        "alpha_g", "pi0_x")
-
-# launches since the last reset: "armm" the forward (one a solve), "armm_bwd"
-# the backward (one a gradient through a solve); both precisions
-ARMM_LAUNCHES = {"armm": 0, "armm_bwd": 0}
 
 # SASS instructions a thread issues per halving of the float32 forward on
 # its common path (both tanf in their three-part reduction, both divisions
@@ -121,7 +119,7 @@ def bisect_forward(lo, hi, rows, n_bisect: int):
         _raise_on(_launcher("fwd", lo.dtype)(
             *map(_ptr, (lo, hi, rows, freqs, mask)), lo.numel(),
             lo.shape[1], n_bisect, _stream(lo.device)), "armm_bisect_fwd")
-        ARMM_LAUNCHES["armm"] += 1
+        COUNTERS["armm_launches"]["armm"] += 1
     return freqs, mask
 
 
@@ -142,7 +140,7 @@ def bisect_backward(g, mask, n_bisect: int):
         _raise_on(_launcher("bwd", g.dtype)(
             *map(_ptr, (g, mask, glo, ghi)), g.numel(), n_bisect,
             _stream(g.device)), "armm_bisect_bwd")
-        ARMM_LAUNCHES["armm_bwd"] += 1
+        COUNTERS["armm_launches"]["armm_bwd"] += 1
     return glo, ghi
 
 

@@ -11,15 +11,18 @@ step, proposal, posterior, model assembly, ARMM solve, ...).  Off, it costs
 one check of a module flag and returns one shared no-op context; on (inside
 `tracing()`), it is `torch.profiler.record_function("tamcmc/" + name)`, so a
 profiler running around it records the span in the same trace as the
-kernels, copies and fills, on the same clock.  `COUNTERS` is the one
-registry of host counters (never a device read): `steps` and `chunks` run
-by `sampler.driver.run_phase`, `launches` (the Lorentzian kernels' launch
-counts, `ops.lorentzian_kernel.LAUNCHES`), `armm_launches` (the ARMM
-bisection kernels', `ops.armm_kernel.ARMM_LAUNCHES`: `armm` one a solve on
-the card, `armm_bwd` one a gradient through it), `alm_tables` (the
-activity filter's evaluations, `ops.alm.ALM_TABLES`: `alm` one a forward
-of an ajAlm assembly) and, while tracing is on, `syncs`: each synchronising
-CUDA call, keyed by the innermost open span.
+kernels, copies and fills, on the same clock.
+
+`COUNTERS` is the one registry of host counters (never a device read), and
+it lives here: the modules that count import it and add to its entries, so
+a new counter is one key below and one increment where it happens.
+`steps` and `chunks` count what `sampler.driver.run_phase` runs,
+`launches` the Lorentzian kernels' launches (`ops.lorentzian_kernel`),
+`armm_launches` the ARMM bisection kernels' (`ops.armm_kernel`),
+`alm_tables` the activity filter's evaluations (`ops.alm.alm_table`) and,
+while tracing is on, `syncs` each synchronising CUDA call, keyed by the
+innermost open span.  `counters()` copies them and `counters_since(copy)` says what moved,
+so a reader never resets a counter.
 """
 
 from __future__ import annotations
@@ -31,10 +34,6 @@ import pathlib
 import warnings
 
 import torch
-
-from tamcmc_tpu_torch.ops.alm import ALM_TABLES
-from tamcmc_tpu_torch.ops.armm_kernel import ARMM_LAUNCHES
-from tamcmc_tpu_torch.ops.lorentzian_kernel import LAUNCHES
 
 
 class MetricsLogger:
@@ -67,8 +66,21 @@ SPAN_PREFIX = "tamcmc/"
 SYNC_WARNING = "called a synchronizing CUDA operation"
 NO_SPAN = "(none)"
 
-COUNTERS = {"steps": 0, "chunks": 0, "syncs": {}, "launches": LAUNCHES,
-            "armm_launches": ARMM_LAUNCHES, "alm_tables": ALM_TABLES}
+COUNTERS = {
+    "steps": 0, "chunks": 0, "syncs": {},
+    # kernel launches per kernel and stream: "fwd" the forward that writes
+    # the model (model-eval, a demo's spectrum), "fwd_chi22p" the forward
+    # with the likelihood's epilogue (every fit's step); keys from
+    # ops.lorentzian_kernel.launch_key
+    "launches": {"fwd": 0, "bwd": 0, "fwd_bf16": 0, "bwd_bf16": 0,
+                 "fwd_chi22p": 0, "fwd_chi22p_bf16": 0,
+                 "fwd_f64": 0, "bwd_f64": 0, "fwd_chi22p_f64": 0},
+    # "armm" the forward (one a solve on the card), "armm_bwd" the backward
+    # (one a gradient through a solve); both precisions
+    "armm_launches": {"armm": 0, "armm_bwd": 0},
+    # "alm" one a forward of an ajAlm assembly (no launch, no synchronise)
+    "alm_tables": {"alm": 0},
+}
 
 _on = False
 _open = []                      # names of the open spans, innermost last

@@ -111,7 +111,7 @@ def _captured_brackets(xs, monkeypatch):
 def test_cpu_tensors_take_the_plain_loop():
     """On the CPU the solver runs the plain loop, launches nothing and
     still gives gradients; the kernel route refuses CPU tensors."""
-    assert COUNTERS["armm_launches"] is ak.ARMM_LAUNCHES
+    assert set(COUNTERS["armm_launches"]) == {"armm", "armm_bwd"}
     xs = [x.requires_grad_(True) for x in _inputs(8, O2_CASES[-1], 0,
                                                   torch.float32, "cpu")]
     before = counters()

@@ -23,6 +23,7 @@ from tamcmc_tpu.ops.pallas_lorentzian import \
     sum_lorentzians_trunc_batched as j_trunc_batched
 from tamcmc_tpu_torch.ops import lorentzian as tl
 from tamcmc_tpu_torch.ops import lorentzian_kernel as tk
+from tamcmc_tpu_torch.utils.metrics import COUNTERS
 
 torch.set_num_threads(1)
 
@@ -908,9 +909,9 @@ def test_bf16_plans_and_bounds():
     assert [tk.launch_key(k, p) for k in ("fwd", "bwd")
             for p in ("f32", "bf16")] == ["fwd", "fwd_bf16", "bwd",
                                           "bwd_bf16"]
-    assert set(tk.LAUNCHES) == {"fwd", "bwd", "fwd_bf16", "bwd_bf16",
-                                "fwd_chi22p", "fwd_chi22p_bf16",
-                                "fwd_f64", "bwd_f64", "fwd_chi22p_f64"}
+    assert set(COUNTERS["launches"]) == {
+        "fwd", "bwd", "fwd_bf16", "bwd_bf16", "fwd_chi22p",
+        "fwd_chi22p_bf16", "fwd_f64", "bwd_f64", "fwd_chi22p_f64"}
     for kind, (n32, n16, ntc) in (("fwd", (4, 5, 2)), ("bwd", (4, 7, 10))):
         ms, by = tk.bound_ms(kind, 768, 54, 40000, 536675, precision="bf16")
         want = 1e3 * 768 * 536675 * (n32 / 67e12 + n16 / 134e12

@@ -5,7 +5,12 @@ there is a CUDA card (`-m card`).  No JAX: the card's machine runs this
 file with `python -m pytest --noconftest -m card`."""
 
 import dataclasses
+import importlib
 import json
+import os
+import pathlib
+import subprocess
+import sys
 import warnings
 
 import pytest
@@ -164,7 +169,48 @@ def test_steps_and_chunks_count_the_plan(n_steps, thin, chunk, steps,
     moved = counters_since(before)
     assert (moved["steps"], moved["chunks"]) == (steps, chunks)
     assert moved["syncs"] == {}          # tracing off: not counted
-    assert COUNTERS["launches"] is metrics.LAUNCHES
+    assert moved["launches"] == {}       # the plain versions ran
+
+
+def test_utils_metrics_loads_no_ops_module():
+    """The lowest module owns the counters: importing it alone, in a fresh
+    interpreter, loads no module of tamcmc_tpu_torch.ops."""
+    root = pathlib.Path(__file__).resolve().parents[1]
+    code = ("import sys, tamcmc_tpu_torch.utils.metrics; print(sorted(m for m"
+            " in sys.modules if m.startswith('tamcmc_tpu_torch.ops')))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=root, env=dict(
+        os.environ, PYTHONPATH=str(root)), capture_output=True, text=True,
+        timeout=120, check=True).stdout
+    assert out.strip() == "[]"
+
+
+# each op module that counts: its entry of COUNTERS and that entry's keys
+COUNTED = {"lorentzian_kernel": ("launches", {
+               "fwd", "bwd", "fwd_bf16", "bwd_bf16", "fwd_chi22p",
+               "fwd_chi22p_bf16", "fwd_f64", "bwd_f64", "fwd_chi22p_f64"}),
+           "armm_kernel": ("armm_launches", {"armm", "armm_bwd"}),
+           "alm": ("alm_tables", {"alm"})}
+
+
+@pytest.mark.parametrize("module", sorted(COUNTED))
+def test_the_ops_count_into_COUNTERS(module):
+    """An op module adds to utils.metrics.COUNTERS itself and keeps no
+    counter dict of its own."""
+    mod = importlib.import_module("tamcmc_tpu_torch.ops." + module)
+    key, names = COUNTED[module]
+    assert mod.COUNTERS is COUNTERS and set(COUNTERS[key]) == names
+    assert not {"LAUNCHES", "ARMM_LAUNCHES", "ALM_TABLES"} & set(vars(mod))
+
+
+def test_one_alm_table_moves_COUNTERS_by_one():
+    """One CPU evaluation of the activity filter counts once in
+    COUNTERS["alm_tables"], which ops.alm holds no copy of."""
+    from tamcmc_tpu_torch.ops import alm
+    theta0 = torch.tensor([0.5, 1.0], dtype=torch.float64)
+    before = counters()
+    alm.alm_table(theta0, 0.2 * theta0)
+    assert counters_since(before)["alm_tables"] == {"alm": 1}
+    assert not hasattr(alm, "ALM_TABLES")
 
 
 def test_the_sync_hook_counts_by_the_innermost_span(monkeypatch):
